@@ -1,0 +1,10 @@
+"""Phi-4-mini 3.8B  [dense]  [arXiv:2412.08905; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b", family="dense",
+    num_layers=32, d_model=3072, num_heads=24, num_kv_heads=8,
+    head_dim=128, d_ff=8192, vocab_size=200064,
+    mlp_type="swiglu", rope_theta=1e6, tie_embeddings=True,
+    source="arXiv:2412.08905; hf",
+)

@@ -1,23 +1,30 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and hold
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card and hold
 each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
+Two paths are served: glm4-9b (dense attention) and mamba2-370m (SSM).
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
 1. build: compile the CUDA sources with nvcc (Triton compiles on launch).
-2. kernels: flash attention (CUDA) and RMSNorm (Triton) against their plain
-   versions on the card at glm4-9b shapes, ragged lengths included; then
-   the kernel's, the plain version's and a library call's times at the
-   serving shape, beside the bound the card's data sheet gives.
-3. parity: glm4-9b at full width cut to 2 layers, fp32, served on the card
-   (kernels) and on the host (plain versions): logits and KV caches within
-   1e-3, identical greedy tokens.
-4. serve: the full 40-layer glm4-9b in bf16 through
-   ``repro_torch.launch.serve.main`` (batch 4, prompt 1024, 32 steps), with
-   the kernels' launch counts read around that run.
-5. decode share: one decode step of that model timed eagerly and replayed
+2. kernels: flash attention (CUDA) at glm4-9b shapes and RMSNorm (Triton)
+   at every width the two models give it (4096; 1024 and 2048), against
+   their plain versions on the card, and the SSD chunk scan (CUDA),
+   y and final state, against the naive recurrence and the chunked plain
+   form at the reference's sweep shapes, mamba2's heads at a ragged S = 200
+   and a prompt shorter than a chunk, ragged lengths included, and at the
+   serving shape with dt and A drawn as mamba2's block makes them; then each
+   kernel's, its plain version's and a library call's times at its serving
+   shape, beside the bound the card's data sheet gives.
+3. parity: each model at full width cut to 2 layers, fp32, served on the
+   card (kernels) and on the host (plain versions): logits and caches (K/V,
+   conv and SSM states) within 1e-3, identical greedy tokens.
+4. serve: each full model in bf16 through ``repro_torch.launch.serve.main``
+   (glm4-9b: 40 layers, batch 4, prompt 1024, 32 steps; mamba2-370m: 48
+   layers, batch 8, prompt 2048, 32 steps), with the kernels' launch counts
+   set to 0 just before and read just after the measured run.
+5. decode share: one decode step of each model timed eagerly and replayed
    from a CUDA graph, to show how much of an eager step the device is busy.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,17 +56,32 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
-ARCH = "glm4-9b"
-SERVE_ARGS = ["--arch", ARCH, "--batch", "4", "--prompt-len", "1024",
-              "--steps", "32"]
+GLM, MAMBA = "glm4-9b", "mamba2-370m"
+SERVE = {GLM: {"batch": 4, "prompt_len": 1024, "steps": 32},
+         MAMBA: {"batch": 8, "prompt_len": 2048, "steps": 32}}
 # Dense peaks from NVIDIA's data sheets: (memory bytes/s, bf16 tensor FLOP/s).
 PEAKS = {"H100 SXM": (3.35e12, 989e12), "H100 PCIe": (2.0e12, 756e12),
          "H100 NVL": (3.9e12, 835e12)}
 # The reference's own pins (tests/test_kernels.py:36-38, 147).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+NORM_CASES = [        # (rows, d): each d is its own Triton specialisation
+    (4, 4096), (4096, 4096), (1000, 4096),   # glm4-9b: decode, prefill rows
+    (8, 1024), (16384, 1024),                # mamba2-370m norm_mixer/final
+    (8, 2048), (16384, 2048),                # mamba2-370m gated ssm_norm
+]
+SSD_CASES = [         # (B, S, H, P, N, chunk)
+    (1, 128, 2, 16, 16, 32),     # the sweep of tests/test_kernels.py:95-100
+    (2, 256, 4, 64, 32, 64),
+    (1, 64, 1, 32, 128, 16),
+    (1, 128, 8, 64, 64, 128),
+    (2, 200, 32, 64, 128, 64),   # mamba2-370m heads, ragged last chunk
+    (2, 40, 32, 64, 128, 64),    # a prompt shorter than one chunk
+]
 PARITY_TOL = 1e-3
 
 
@@ -143,9 +166,24 @@ def phase_build():
              ptxas=[ln for ln in log if "registers" in ln or "spill" in ln])
 
 
+def ssd_inputs(B, S, H, P, N, dtype, gen, model=False):
+    """x, dt, a_neg, Bm, Cm as the reference's sweep draws them, or, with
+    ``model``, dt and A as mamba2's block makes them: dt the softplus of a
+    unit-scale projection, A = exp(a_log) with a_log ~ U[0, log 16)."""
+    if model:
+        dt = F.softplus(randn((B, S, H), torch.float32, gen))
+        a_neg = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
+                           * math.log(16.0))
+    else:
+        dt = F.softplus(randn((B, S, H), torch.float32, gen)) * 0.1
+        a_neg = -torch.exp(randn((H,), torch.float32, gen) * 0.2)
+    return (randn((B, S, H, P), dtype, gen), dt, a_neg,
+            randn((B, S, N), dtype, gen), randn((B, S, N), dtype, gen))
+
+
 def phase_kernels():
-    """Hold both kernels against their plain versions; time them at the
-    serving shape.  Returns the kernels' rows (launches filled in later)."""
+    """Hold the kernels against their plain versions; time them at their
+    serving shapes.  Returns the kernels' rows (launches filled in later)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     H, KH, hd = 32, 2, 128
     for B, S in ((2, 512), (1, 2048), (2, 200)):
@@ -159,8 +197,7 @@ def phase_kernels():
                 torch.cuda.synchronize()
                 check_close(f"flash B={B} S={S} {dtype} causal={causal}",
                             got, want, FLASH_TOL[dtype])
-    d = 4096
-    for rows in (4, 4096, 1000):
+    for rows, d in NORM_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn((rows, d), dtype, gen)
             w = 1.0 + 0.1 * randn((d,), torch.float32, gen)
@@ -169,6 +206,18 @@ def phase_kernels():
             torch.cuda.synchronize()
             check_close(f"rmsnorm rows={rows} d={d} {dtype}", got, want,
                         NORM_TOL[dtype])
+    for B, S, H, P, N, chunk in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(B, S, H, P, N, dtype, gen)
+            y, h = ops.ssd_scan(*args, chunk=chunk)
+            case = f"ssd B={B} S={S} H={H} P={P} N={N} L={chunk} {dtype}"
+            for plain, (want_y, want_h) in (
+                    ("ssd_ref", ref.ssd_ref(*args)),
+                    ("ssd_chunked", ssd_chunked(*args, chunk=chunk))):
+                torch.cuda.synchronize()
+                check_close(f"{case} y vs {plain}", y, want_y, SSD_TOL[dtype])
+                check_close(f"{case} h_final vs {plain}", h, want_h,
+                            SSD_TOL[dtype])
 
     _, (bw, flops) = peaks(torch.cuda.get_device_name(0))
     bf16 = torch.bfloat16
@@ -194,6 +243,7 @@ def phase_kernels():
         "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
     }
 
+    d = 4096   # the norm timed at glm4-9b's prefill
     x = randn((B * S, d), bf16, gen)
     w = 1.0 + 0.1 * randn((d,), torch.float32, gen)
     w_lib = w.to(bf16)   # F.rms_norm takes its weight in x's dtype
@@ -215,7 +265,38 @@ def phase_kernels():
         "bytes": nbytes, "flops": work,
         "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
     }
-    rows = [flash, norm]
+
+    # the SSD scan at mamba2-370m's prefill of the serve phase
+    B, S, H, P, N, L = 8, 2048, 32, 64, 128, 64
+    args = ssd_inputs(B, S, H, P, N, bf16, gen, model=True)
+    y, h = ops.ssd_scan(*args, chunk=L)
+    want_y, want_h = ssd_chunked(*args, chunk=L)
+    err = check_close("ssd serving shape y", y, want_y, SSD_TOL[bf16])
+    # both sides form the state in fp32 from the same bf16 inputs
+    err = max(err, check_close("ssd serving shape h_final", h, want_h,
+                               SSD_TOL[torch.float32]))
+    nc = -(-S // L)
+    nbytes = (2 * 2 * B * S * H * P + 4 * B * S * H + 4 * H
+              + 2 * 2 * B * S * N + 4 * B * H * P * N)
+    # C B^T once per (batch, chunk); per head and chunk the intra product
+    # (2 L^2 P), the inter product (2 L N P) and the state update (2 L P N)
+    work = B * nc * 2 * L * L * N + B * H * nc * (2 * L * L * P
+                                                  + 4 * L * N * P)
+    ssd = {
+        "name": "ssd_scan", "route": "cuda", "impl": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:60",
+        "tpu": "kernels/ssd_scan.py::ssd_scan_fwd",
+        "shape": f"x ({B},{S},{H},{P}) B/C ({B},{S},{N}) bf16, dt fp32, "
+                 f"chunk {L}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=10),
+        "plain_ms": cuda_ms(lambda: ssd_chunked(*args, chunk=L), iters=3),
+        "library_ms": None,   # no one PyTorch call computes the SSD scan
+        "bytes": nbytes, "flops": work,
+        "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
+    }
+    rows = [flash, norm, ssd]
     for row in rows:
         row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
         row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["flops_ms"]
@@ -224,9 +305,9 @@ def phase_kernels():
     return rows
 
 
-def phase_parity():
-    """fp32 glm4-9b at full width, 2 layers: card (kernels) vs host (plain)."""
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype="float32")
+def phase_parity(arch):
+    """fp32 ``arch`` at full width, 2 layers: card (kernels) vs host (plain)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     B, S, steps = 2, 200, 8
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = init_params(cfg, gen, "cuda")
@@ -237,55 +318,71 @@ def phase_parity():
                       max_seq=S + steps + 8, batch_size=B)
     logits_g, cache_g = gpu.prefill(prompt)
     logits_c, cache_c = cpu.prefill(prompt.cpu())
-    check_close("parity prefill logits", logits_g.cpu(), logits_c, PARITY_TOL)
+    check_close(f"parity {arch} prefill logits", logits_g.cpu(), logits_c,
+                PARITY_TOL)
     for name in cache_c:
-        check_close(f"parity cache {name}", cache_g[name].cpu(),
+        check_close(f"parity {arch} cache {name}", cache_g[name].cpu(),
                     cache_c[name], PARITY_TOL)
     tok_g = gpu.generate(prompt, steps).cpu()
     tok_c = cpu.generate(prompt.cpu(), steps)
     same = bool(torch.equal(tok_g, tok_c))
-    emit(phase="parity", greedy_tokens_equal=same, steps=steps,
+    emit(phase="parity", arch=arch, greedy_tokens_equal=same, steps=steps,
          tokens=tok_g[0].tolist())
     if not same:
-        raise AssertionError(f"greedy tokens differ: card {tok_g.tolist()} "
-                             f"host {tok_c.tolist()}")
+        raise AssertionError(f"{arch}: greedy tokens differ: card "
+                             f"{tok_g.tolist()} host {tok_c.tolist()}")
 
 
-def phase_serve(smi):
+def expected_launches(cfg, steps):
+    """Launches of one request (prefill + ``steps`` decode steps): flash
+    and the SSD scan once per layer of their kind in prefill; the norm
+    before each mixer and FFN, inside each SSM mixer and at the end, in
+    every forward."""
+    kinds = [(cfg.mixer_kind(i), cfg.ffn_kind(i))
+             for i in range(cfg.num_layers)]
+    norms = 1 + sum(1 + (ffn != "none") + (mixer == "ssm")
+                    for mixer, ffn in kinds)
+    return {"flash_attention": sum(m == "attn" for m, _ in kinds),
+            "rmsnorm": norms * (1 + steps),
+            "ssd_scan": sum(m == "ssm" for m, _ in kinds)}
+
+
+def phase_serve(arch, smi):
     """The full bf16 model through the CLI's main(): a warm-up run, then
     the measured run with the launch counts read around it."""
-    cfg = get_config(ARCH)
-    serve.main(SERVE_ARGS[:-1] + ["2"])           # warm-up: 2 decode steps
+    cfg = get_config(arch)
+    run = SERVE[arch]
+    argv = ["--arch", arch, "--batch", str(run["batch"]),
+            "--prompt-len", str(run["prompt_len"])]
+    serve.main(argv + ["--steps", "2"])           # warm-up: 2 decode steps
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = serve.main(SERVE_ARGS)
+    res = serve.main(argv + ["--steps", str(run["steps"])])
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    steps = int(SERVE_ARGS[-1])
     tokens = res["tokens"]
-    emit(phase="serve", arch=ARCH, layers=cfg.num_layers, dtype="bfloat16",
-         batch=4, prompt_len=1024, steps=steps,
-         prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+    emit(phase="serve", arch=arch, layers=cfg.num_layers, dtype="bfloat16",
+         **run, prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          prefill_tok_s=res["prefill_tok_s"], decode_tok_s=res["decode_tok_s"],
          peak_mem_bytes=peak, launches=launches, nvidia_smi=smi)
     if not res["logits_finite"]:
-        raise AssertionError("non-finite logits")
-    if tokens.shape != (4, steps) or int(tokens.min()) < 0 \
+        raise AssertionError(f"{arch}: non-finite logits")
+    if tokens.shape != (run["batch"], run["steps"]) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
-        raise AssertionError(f"tokens out of range: {tokens.tolist()}")
-    want = {"flash_attention": cfg.num_layers,
-            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps)}
+        raise AssertionError(f"{arch}: tokens out of range: "
+                             f"{tokens.tolist()}")
+    want = expected_launches(cfg, run["steps"])
     if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
     return launches
 
 
-def phase_decode_share(smi):
+def phase_decode_share(arch, smi):
     """One bf16 decode step of the full model, run eagerly (host clock,
     synchronised) and replayed from a CUDA graph (device time only): the
     device's busy share of an eager step is their ratio."""
-    cfg = get_config(ARCH)
-    B, S = 4, 1024
+    cfg = get_config(arch)
+    B, S = SERVE[arch]["batch"], SERVE[arch]["prompt_len"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     engine = ServeEngine(cfg, init_params(cfg, gen, "cuda"), max_seq=S + 8,
                          batch_size=B)
@@ -306,23 +403,31 @@ def phase_decode_share(smi):
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / iters
     device_ms = cuda_ms(step, iters=iters)
-    emit(phase="decode_share", batch=B, cache_len=S, eager_step_ms=eager_ms,
-         device_step_ms=device_ms, device_busy_share=device_ms / eager_ms,
-         nvidia_smi=smi)
+    emit(phase="decode_share", arch=arch, batch=B, cache_len=S,
+         eager_step_ms=eager_ms, device_step_ms=device_ms,
+         device_busy_share=device_ms / eager_ms, nvidia_smi=smi)
 
 
 def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    phase_parity()
-    launches = phase_serve(smi)
-    phase_decode_share(smi)
+    by_path = {}
+    for arch in (GLM, MAMBA):
+        phase_parity(arch)
+        by_path[f"serve {arch}"] = phase_serve(arch, smi)
+        phase_decode_share(arch, smi)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "impl", "source", "replaces", "tpu", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+        row["launches_by_path"] = {path: launches[row["name"]]
+                                   for path, launches in by_path.items()
+                                   if launches[row["name"]]}
+        row["path"] = ", ".join(row["launches_by_path"])
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on any path")
+    keys = ("name", "route", "impl", "source", "replaces", "tpu", "path",
+            "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,27 @@ def attention_ref(q, k, v, *, causal=True):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def ssd_ref(x, dt, a_neg, Bm, Cm, h0=None):
+    """Naive per-step SSD recurrence (``repro/kernels/ref.py:28-52``).
+
+    x: (B,S,H,P); dt: (B,S,H); a_neg: (H,); Bm/Cm: (B,S,N).
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ;  y_t = C_t . h_t
+    fp32 inside; returns (y in x's dtype, the final state (B,H,P,N) fp32).
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * a_neg[None, :])
+        h = h * decay[:, :, None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], bf[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
 def rmsnorm_ref(x, w, eps=1e-6):
     """y = x * rsqrt(mean(x^2) + eps) * w over the last dim, fp32 inside."""
     xf = x.float()

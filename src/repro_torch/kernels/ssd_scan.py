@@ -1,0 +1,118 @@
+"""Mamba2 SSD chunk scan forward on Hopper: ctypes wrapper of ``csrc/ssd_scan.cu``.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py::
+ssd_scan_fwd`` (``_ssd_kernel``).  The kernel is CUDA C++ for ``sm_90a``,
+built by ``build.py`` with ``nvcc`` and bound with ``ctypes``.  Beyond the
+TPU kernel it returns the final state (the model's prefill keeps it for
+decode) and takes any sequence length (the ragged last chunk is masked).
+
+Bound: at the serving shape (mamba2-370m, B=8, S=2048, H=32, P=64, N=128,
+chunk 64, bf16) the scan reads x, dt, B and C once and writes y and the
+final state once, ~153 MB, against ~22 GFLOP of chunk products, so it is
+bound by bytes (~46 us on an H100 SXM).  The design keeps the (P, N) state
+and the chunk's L x L weights out of device memory: one block per (batch,
+head) walks the chunks in order with the state in shared memory, so device
+memory sees only the inputs and outputs.  This first version multiplies in
+fp32 on the CUDA cores from shared memory and recomputes C B^T per head,
+so it sits far above that bound; see the source's note and PERF.md.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)        # P
+MAX_STATE = 128                 # N, a multiple of 16
+TILES = (16, 32, 64, 128)       # chunk tiles; every (tile, P, N) fits in
+                                # shared memory, the largest in 199 KB
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = ctypes.CDLL(str(build.build()["ssd_scan"]))
+        fn = lib.ssd_scan_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def tile_for(chunk: int) -> int:
+    """The smallest chunk tile that holds ``chunk`` steps."""
+    return next((t for t in TILES if t >= chunk), 0)
+
+
+def check_inputs(x, dt, a_neg, Bm, Cm, chunk):
+    """Raise ``ValueError`` for anything the kernel does not take."""
+    for name, t in (("x", x), ("dt", dt), ("a_neg", a_neg), ("Bm", Bm),
+                    ("Cm", Cm)):
+        if t.device.type != "cuda":
+            raise ValueError(f"ssd_scan: {name} is on {t.device}, the kernel "
+                             f"needs a CUDA tensor")
+        if t.device != x.device:
+            raise ValueError("ssd_scan: the inputs lie on different devices")
+    if (x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype
+            or dt.dtype != torch.float32 or a_neg.dtype != torch.float32):
+        raise ValueError(f"ssd_scan: dtypes x {x.dtype}, Bm {Bm.dtype}, Cm "
+                         f"{Cm.dtype}, dt {dt.dtype}, a_neg {a_neg.dtype}; the "
+                         f"kernel takes x, Bm and Cm in one of "
+                         f"{sorted(map(str, DTYPES))}, dt and a_neg in float32")
+    if x.dim() != 4 or Bm.dim() != 3:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)} must be (B, S, H, P) "
+                         f"and Bm {tuple(Bm.shape)} (B, S, N)")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if (tuple(dt.shape) != (B, S, H) or tuple(a_neg.shape) != (H,)
+            or tuple(Bm.shape) != (B, S, N) or tuple(Cm.shape) != (B, S, N)):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a_neg {tuple(a_neg.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} disagree")
+    if (x.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1
+            or not a_neg.is_contiguous()):
+        raise ValueError("ssd_scan: x, Bm and Cm need a contiguous last dim "
+                         "and a_neg must be contiguous")
+    if P not in HEAD_DIMS or N % 16 or not 16 <= N <= MAX_STATE:
+        raise ValueError(f"ssd_scan: head dim {P} not in {HEAD_DIMS}, or "
+                         f"state size {N} not a multiple of 16 up to "
+                         f"{MAX_STATE}")
+    if S == 0 or B * H == 0:
+        raise ValueError(f"ssd_scan: S = {S} and B*H = {B * H} must be "
+                         f"non-zero")
+    L = min(chunk, S)
+    if L < 1 or not tile_for(L):
+        raise ValueError(f"ssd_scan: chunk {chunk} (at most {TILES[-1]})")
+
+
+def ssd_scan_fwd(x, dt, a_neg, Bm, Cm, *, chunk=64):
+    """x: (B,S,H,P); dt: (B,S,H); a_neg: (H,); Bm/Cm: (B,S,N) CUDA tensors
+    -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) float32).
+
+    Chunks of ``min(chunk, S)`` steps, the last one ragged.  Launches on the
+    current stream and does not synchronise; raises ``RuntimeError`` if the
+    launch is refused.
+    """
+    check_inputs(x, dt, a_neg, Bm, Cm, chunk)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_int64 * 10)(*x.stride()[:3], *dt.stride(),
+                                     *Bm.stride()[:2], *Cm.stride()[:2])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel()(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(),
+                    Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                    h_final.data_ptr(), DTYPES[x.dtype], B, S, H, P, N, L,
+                    tile_for(L), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
+    return y, h_final

@@ -4,6 +4,8 @@ checkpoint is not ported yet).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --prompt-len 1024 --steps 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --prompt-len 2048 --steps 32 --batch 8
 
 Runs on the card (``--device cuda``, the default; raises without one);
 ``--device cpu`` runs on the host through the kernels' plain versions.

@@ -1,10 +1,9 @@
-"""Decoder blocks: attention + dense MLP sub-layers (mirrors
-``repro/models/blocks.py``, dense path only).
+"""Decoder blocks: (attention | SSD mixer) + (dense MLP | none) sub-layers
+(mirrors ``repro/models/blocks.py``).
 
 A *superblock* is one period of the architecture's layer pattern; the
-model stacks its parameters on a leading dim.  MoE and SSM sub-layers are
-not ported yet (ROADMAP Queue 1, "MoE and expert parallelism" and "SSM
-family").
+model stacks its parameters on a leading dim.  MoE sub-layers are not
+ported yet (ROADMAP Queue 1, "MoE and expert parallelism").
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import torch
 
 from .attention import attention_block, attn_init
 from .common import mlp_apply, mlp_init, rmsnorm, subtree
+from .ssm import ssm_block, ssm_init
 
 
 def layer_kinds(cfg, layer: int) -> tuple[str, str]:
@@ -22,12 +22,7 @@ def layer_kinds(cfg, layer: int) -> tuple[str, str]:
 def check_supported(cfg):
     """Raise ``NotImplementedError`` for the families this port lacks."""
     for i in range(cfg.block_period):
-        mixer, ffn = layer_kinds(cfg, i)
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM mixers are not ported yet (ROADMAP Queue 1, "
-                "\"SSM family\")")
-        if ffn == "moe":
+        if layer_kinds(cfg, i)[1] == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP Queue 1, "
                 "\"MoE and expert parallelism\")")
@@ -35,13 +30,14 @@ def check_supported(cfg):
 
 def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
     """Flat params of one layer, each leaf stacked ``(stacked, ...)``."""
-    _, ffn = layer_kinds(cfg, layer)
+    mixer, ffn = layer_kinds(cfg, layer)
     device = generator.device
     ones = torch.ones((stacked, cfg.d_model), dtype=torch.float32,
                       device=device)
     p = {"norm_mixer": ones.clone()}
-    p.update({f"attn.{k}": v for k, v in
-              attn_init(cfg, dtype, generator, stacked).items()})
+    init = attn_init if mixer == "attn" else ssm_init
+    p.update({f"{mixer}.{k}": v for k, v in
+              init(cfg, dtype, generator, stacked).items()})
     if ffn != "none":
         p["norm_ffn"] = ones.clone()
     if ffn == "mlp":
@@ -53,16 +49,21 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
 
 def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
                    index: int = 0, cache_len=None):
-    """One decoder layer: x + attn(norm(x)); x + mlp(norm(x)).
+    """One decoder layer: x + mixer(norm(x)); x + mlp(norm(x)).
 
     ``index`` is this superblock's position in the stack (the slice of the
-    stacked decode cache it owns).  Returns (x, kv).
+    stacked decode cache it owns).  Returns (x, state): the mixer's prefill
+    cache entries (``{"k", "v"}`` or ``{"conv", "ssm"}``), else None.
     """
-    _, ffn = layer_kinds(cfg, layer)
+    mixer, ffn = layer_kinds(cfg, layer)
     h = rmsnorm(x, p["norm_mixer"])
-    out, kv = attention_block(subtree(p, "attn"), h, cfg, positions=positions,
-                              mode=mode, cache=cache, index=index,
-                              cache_len=cache_len)
+    if mixer == "attn":
+        out, kv = attention_block(subtree(p, "attn"), h, cfg,
+                                  positions=positions, mode=mode, cache=cache,
+                                  index=index, cache_len=cache_len)
+    else:
+        out, kv = ssm_block(subtree(p, "ssm"), h, cfg, mode=mode, cache=cache,
+                            index=index)
     x = x + out
     if ffn != "none":
         h = rmsnorm(x, p["norm_ffn"])
@@ -82,8 +83,9 @@ def superblock_apply(p, x, cfg, *, positions, mode, cache=None, index: int = 0,
                      cache_len=None):
     """Apply one superblock (period consecutive layers).
 
-    cache: flat ``{"pos{i}.k"/"pos{i}.v": stacked cache}`` (decode) or None.
-    Returns (x, {"pos{i}.k"/"pos{i}.v": this superblock's K/V}) in prefill.
+    cache: flat ``{"pos{i}.<leaf>": stacked cache}`` (decode) or None.
+    Returns (x, {"pos{i}.<leaf>": this superblock's cache entries}), the
+    entries being K/V or the conv and SSM states, filled in prefill only.
     """
     new_kv = {}
     for i in range(cfg.block_period):

@@ -1,13 +1,13 @@
 """DecoderLM: the decoder-only model (mirrors ``repro/models/model.py``).
 
-Dense architectures only in this port so far; MoE, SSM and ``embeds``
-frontends raise ``NotImplementedError`` naming their ROADMAP item.  The
-superblock parameters are stacked on a leading dim, as the reference's
-scan layout (``model.py:32``), and applied by a Python loop.
+Dense and SSM (mamba2) architectures so far; MoE and ``embeds`` frontends
+raise ``NotImplementedError`` naming their ROADMAP item.  The superblock
+parameters are stacked on a leading dim, as the reference's scan layout
+(``model.py:32``), and applied by a Python loop.
 
 Modes:
   train   — full sequence, returns logits
-  prefill — full sequence, also returns the KV caches
+  prefill — full sequence, also returns the KV / conv / SSM caches
   decode  — single token against the caches (updated in place)
 """
 
@@ -51,19 +51,30 @@ def init_params(cfg, generator, device=None, dtype=None) -> dict:
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
-    """Zeroed decode caches ``{"pos{i}.k"/"pos{i}.v": (n_super, B, max_seq,
-    KH, hd)}`` in ``cfg.dtype``, stacked per superblock as the reference's
-    scan layout."""
+    """Zeroed decode caches, stacked per superblock as the reference's scan
+    layout (``model.py:212-230``): for an attention position
+    ``pos{i}.k``/``pos{i}.v`` (n_super, B, max_seq, KH, hd) in ``cfg.dtype``;
+    for an SSM position ``pos{i}.conv`` (n_super, B, k-1, d_inner) in
+    ``cfg.dtype`` and ``pos{i}.ssm`` (n_super, B, H, P, N) in float32."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     n_super = cfg.num_layers // cfg.block_period
-    shape = (n_super, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {}
     for i in range(cfg.block_period):
-        for name in ("k", "v"):
-            cache[f"pos{i}.{name}"] = torch.zeros(shape, dtype=dtype,
-                                                  device=device)
+        if cfg.mixer_kind(i) == "attn":
+            shape = (n_super, batch, max_seq, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            for name in ("k", "v"):
+                cache[f"pos{i}.{name}"] = torch.zeros(shape, dtype=dtype,
+                                                      device=device)
+        else:
+            cache[f"pos{i}.conv"] = torch.zeros(
+                (n_super, batch, cfg.conv_kernel - 1, cfg.d_inner),
+                dtype=dtype, device=device)
+            cache[f"pos{i}.ssm"] = torch.zeros(
+                (n_super, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                 cfg.ssm_state), dtype=torch.float32, device=device)
     return cache
 
 
@@ -72,8 +83,9 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
 
     batch: ``{"tokens": (B, S) integer}``; decode additionally takes
     ``{"cache_len": int}`` and S == 1.  In prefill ``new_cache`` holds the
-    prompt's K/V stacked ``(n_super, B, S, KH, hd)``; in decode it is
-    ``cache``, updated in place.  ``aux_loss`` is 0 (no MoE).
+    prompt's K/V stacked ``(n_super, B, S, KH, hd)`` and the conv and SSM
+    states after the prompt, stacked ``(n_super, ...)``; in decode it is
+    ``cache``, every leaf updated in place.  ``aux_loss`` is 0 (no MoE).
     """
     check_supported(cfg)
     if "embeds" in batch:

@@ -1,0 +1,186 @@
+"""Mamba2 (SSD, state-space duality) sequence mixer (mirrors
+``repro/models/ssm.py``).
+
+Train and prefill run the chunked SSD scan through ``kernels.ops.ssd_scan``:
+the hand-written CUDA kernel on the card, ``ssd_chunked`` below on the host.
+``ssd_chunked`` is the chunk step of the reference written as a Python loop
+over chunks (the reference's ``lax.scan``); the O(1)-state decode step is
+plain PyTorch, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+from .common import dense_init, normal_init, rmsnorm
+
+
+def ssm_init(cfg, dtype, generator, stacked: int = 0) -> dict:
+    """Same leaves, shapes and distributions as the reference
+    (``ssm.py:28-51``); each leaf stacked ``(stacked, ...)`` when asked."""
+    d, din, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh, k = cfg.ssm_heads, cfg.conv_kernel
+    device = generator.device
+    lead = (stacked,) if stacked else ()
+
+    def const(value, n):
+        return torch.full(lead + (n,), value, dtype=torch.float32,
+                          device=device)
+
+    # A in [1, 16) as in the mamba2 reference init: log A uniform in [0, log 16)
+    a_log = torch.rand(lead + (nh,), generator=generator,
+                       device=device) * math.log(16.0)
+    return {
+        "in_z": dense_init(d, din, dtype, generator, stacked),
+        "in_x": dense_init(d, din, dtype, generator, stacked),
+        "in_B": dense_init(d, ds, dtype, generator, stacked),
+        "in_C": dense_init(d, ds, dtype, generator, stacked),
+        "in_dt": dense_init(d, nh, dtype, generator, stacked),
+        "conv_w": normal_init((k, din), 1.0 / math.sqrt(k), dtype, generator,
+                              stacked=stacked),
+        "a_log": a_log,
+        "d_skip": const(1.0, nh),
+        "dt_bias": const(0.0, nh),
+        "ssm_norm": const(1.0, din),
+        "out_proj": dense_init(din, d, dtype, generator, stacked),
+    }
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, C); w: (k, C).
+
+    state: (B, k-1, C) carry-in for decode; returns (y, new_state), the new
+    state being the last k-1 inputs.  The same sum of k shifted products as
+    the reference, not ``F.conv1d``: cuDNN's fp32 convolution runs in TF32
+    by default.  For k = 1 the state is an empty (B, 0, C) tensor where the
+    reference returns None.
+    """
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S, :] * w[i] for i in range(k))
+    return y, xp[:, xp.shape[1] - (k - 1):, :]
+
+
+def ssd_chunked(x, dt, a_neg, Bm, Cm, *, chunk: int, h0=None):
+    """Chunked SSD scan (``ssm.py:68-127``).
+
+    x: (B, S, H, P); dt: (B, S, H) positive steps; a_neg: (H,) negative;
+    Bm, Cm: (B, S, N) (one group); h0: optional (B, H, P, N) initial state.
+    Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32).
+    """
+    Bb, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    if S % L:
+        # ragged tail: pad with dt=0 steps -- decay exp(0)=1 and zero input
+        # contribution make padding exact, not approximate.
+        pad = L - S % L
+
+        def pw(t):
+            return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+
+        y, hT = ssd_chunked(pw(x), pw(dt), a_neg, pw(Bm), pw(Cm),
+                            chunk=chunk, h0=h0)
+        return y[:, :S], hT
+    nc = S // L
+
+    xf = x.float().reshape(Bb, nc, L, H, Pd)
+    dtf = dt.float().reshape(Bb, nc, L, H)
+    Bf = Bm.float().reshape(Bb, nc, L, N)
+    Cf = Cm.float().reshape(Bb, nc, L, N)
+    a = dtf * a_neg[None, None, None, :]                 # (B, nc, L, H) <= 0
+    h = (torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+
+    ys = []
+    for c in range(nc):
+        xc, dtc, bc, cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        acum = torch.cumsum(a[:, c], dim=1)              # (B,L,H) inclusive
+        # ---- intra-chunk (the "duality" quadratic form) ----
+        seg = acum[:, :, None, :] - acum[:, None, :, :]  # (B,L,L,H): l,m
+        # mask BEFORE exp: the anti-causal lanes have seg >> 0
+        seg = torch.where(causal[None, :, :, None], seg,
+                          torch.full_like(seg, -math.inf))
+        w = torch.exp(seg)
+        cb = torch.einsum("bln,bmn->blm", cc, bc)        # (B,L,L)
+        wmat = cb[..., None] * w * dtc[:, None, :, :]    # (B,L,L,H)
+        y_intra = torch.einsum("blmh,bmhp->blhp", wmat, xc)
+        # ---- inter-chunk: contribution of the carried state ----
+        y_inter = (torch.einsum("bln,bhpn->blhp", cc, h)
+                   * torch.exp(acum)[..., None])
+        # ---- state update ----
+        decay_to_end = torch.exp(acum[:, -1:, :] - acum)  # (B,L,H)
+        s_c = torch.einsum("bln,blh,blhp->bhpn", bc, dtc * decay_to_end, xc)
+        h = h * torch.exp(acum[:, -1, :])[:, :, None, None] + s_c
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bb, S, H, Pd)
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step(x, dt, a_neg, Bm, Cm, h):
+    """Single-token recurrence: h' = exp(dt*A) h + dt * B x ;  y = C . h'.
+
+    x: (B, 1, H, P); dt: (B, 1, H); Bm/Cm: (B, 1, N); h: (B, H, P, N).
+    Returns (y (B, 1, H, P) in x's dtype, h')."""
+    xf = x.float()[:, 0]                                 # (B,H,P)
+    dtf = dt.float()[:, 0]                               # (B,H)
+    bf = Bm.float()[:, 0]                                # (B,N)
+    cf = Cm.float()[:, 0]
+    decay = torch.exp(dtf * a_neg[None, :])              # (B,H)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, bf)
+    h_new = h * decay[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", cf, h_new)
+    return y[:, None].to(x.dtype), h_new
+
+
+def ssm_block(p, x, cfg, *, mode, cache=None, index: int = 0):
+    """Full Mamba2 sub-layer (``ssm.py:145-186``).  x: (B, S, d).
+
+    Returns (out, state): ``state`` is ``{"conv", "ssm"}`` of this call in
+    prefill and None in train and decode.  Decode reads and writes
+    ``cache["conv"][index]`` and ``cache["ssm"][index]`` (the slice of the
+    stacked cache this superblock owns) IN PLACE, where the reference
+    returns an updated copy.
+    """
+    nh, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    z = x @ p["in_z"]
+    xs = x @ p["in_x"]
+    Bm = x @ p["in_B"]
+    Cm = x @ p["in_C"]
+    dt = x @ p["in_dt"]
+
+    conv_state = cache["conv"][index] if mode == "decode" else None
+    xs, new_conv = causal_conv1d(xs, p["conv_w"], conv_state)
+    xs = F.silu(xs)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a_neg = -torch.exp(p["a_log"])
+    xh = xs.reshape(xs.shape[0], xs.shape[1], nh, pd)
+
+    if mode == "decode":
+        y, h_new = ssd_decode_step(xh, dt, a_neg, Bm, Cm, cache["ssm"][index])
+    else:
+        y, h_new = ops.ssd_scan(xh, dt, a_neg, Bm, Cm,
+                                chunk=min(64, xs.shape[1]))
+    y = y + (p["d_skip"][None, None, :, None] * xh.float()).to(y.dtype)
+    y = y.reshape(xs.shape)
+
+    # gated RMSNorm (mamba2): norm(y * silu(z)), the product in the model dtype
+    y = rmsnorm(y * F.silu(z), p["ssm_norm"])
+    out = y @ p["out_proj"]
+
+    if mode == "decode":
+        cache["conv"][index].copy_(new_conv)
+        cache["ssm"][index].copy_(h_new)
+    state = {"conv": new_conv, "ssm": h_new} if mode == "prefill" else None
+    return out, state

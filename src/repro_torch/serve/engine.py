@@ -2,9 +2,11 @@
 (mirrors ``repro/serve/engine.py``).
 
 ``prefill`` runs the full forward over the prompt and copies the layer
-caches into preallocated max-length buffers; ``decode_step`` appends one
-token for the whole batch, writing its K/V into those buffers in place
-(the reference donates the cache and returns an updated copy).  The batch
+caches into preallocated buffers: K/V into the first S positions of the
+max-length buffers, the conv and SSM states whole.  ``decode_step`` appends
+one token for the whole batch, writing its K/V and the new states into those
+buffers in place (the reference donates the cache and returns an updated
+copy).  The batch
 advances in lockstep (one shared cache_len).
 """
 
@@ -34,8 +36,11 @@ class ServeEngine:
         cache = init_cache(self.cfg, self.batch_size, self.max_seq,
                            device=self.device)
         S = tokens.shape[1]
-        for name, kv in pref_cache.items():
-            cache[name][:, :, :S] = kv
+        for name, leaf in pref_cache.items():
+            if name.endswith((".k", ".v")):
+                cache[name][:, :, :S] = leaf
+            else:   # conv / SSM state: the prompt's final state, whole
+                cache[name].copy_(leaf)
         return logits[:, -1], cache
 
     @torch.inference_mode()

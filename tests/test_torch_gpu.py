@@ -6,17 +6,23 @@ fixture, never at import).  On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are the reference's pins (tests/test_kernels.py): attention 2e-5
-in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16.  This file imports no
-JAX, so it runs where only the port and PyTorch are installed.
+in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16; the SSD scan 1e-4 in
+fp32 and 5e-2 in bf16.  This file imports no JAX, so it runs where only the
+port and PyTorch are installed.
 """
+
+import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models.ssm import ssd_chunked
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 pytestmark = pytest.mark.gpu
 
@@ -72,8 +78,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
         ops.flash_attention(q, q.bfloat16(), q)
 
 
-@pytest.mark.parametrize("rows,d", [(4, 4096), (4096, 4096), (1000, 4096),
-                                    (6, 64), (3, 3072)])
+@pytest.mark.parametrize("rows,d", [
+    (4, 4096), (4096, 4096), (1000, 4096),   # glm4-9b decode and prefill
+    (8, 1024), (16384, 1024),                # mamba2-370m norm_mixer/final
+    (8, 2048), (16384, 2048),                # mamba2-370m gated ssm_norm
+    (6, 64), (3, 3072),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     x = _randn((rows, d), dtype, gen)
@@ -83,3 +93,90 @@ def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     assert ops.LAUNCHES["rmsnorm"] == before + 1
     torch.testing.assert_close(got, ref.rmsnorm_ref(x, w),
                                atol=NORM_TOL[dtype], rtol=NORM_TOL[dtype])
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, gen):
+    """x, dt, a_neg, Bm, Cm as the reference's sweep draws them."""
+    return (_randn((B, S, H, P), dtype, gen),
+            F.softplus(_randn((B, S, H), torch.float32, gen)) * 0.1,
+            -torch.exp(_randn((H,), torch.float32, gen) * 0.2),
+            _randn((B, S, N), dtype, gen), _randn((B, S, N), dtype, gen))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 128, 2, 16, 16, 32),     # the sweep of tests/test_kernels.py:95-100
+    (2, 256, 4, 64, 32, 64),
+    (1, 64, 1, 32, 128, 16),
+    (1, 128, 8, 64, 64, 128),
+    (2, 200, 32, 64, 128, 64),   # mamba2-370m heads, ragged last chunk
+    (2, 40, 32, 64, 128, 64),    # a prompt shorter than one chunk
+    (2, 77, 8, 16, 16, 64),      # reduced mamba2, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(gen, B, S, H, P, N, chunk, dtype):
+    args = _ssd_inputs(B, S, H, P, N, dtype, gen)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    for want_y, want_h in (ref.ssd_ref(*args),
+                           ssd_chunked(*args, chunk=chunk)):
+        torch.testing.assert_close(y, want_y, atol=tol, rtol=tol)
+        torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_model_draws(gen, dtype):
+    """dt and A as mamba2's block makes them (dt = softplus of a unit-scale
+    projection, A = exp(a_log), a_log ~ U[0, log 16)): per-step decays ~100x
+    the sweep's, a chunk's cumsum of dt A reaches hundreds and |y| ~300.
+
+    At that scale any fp32 chunked form (its exp(cumsum_l - cumsum_m), its
+    sums of cancelling terms) is off the naive recurrence by up to ~1e-3
+    absolute, also where y is near 0, and the kernel and the plain chunked
+    form round differently.  So y is held to the naive recurrence within
+    the pin plus twice the plain chunked form's own error there.  The
+    state is held to the plain chunked form at the fp32 pin for both dtypes,
+    since both sides form it in fp32 from the same inputs."""
+    B, S, H, P, N = 2, 200, 32, 64, 128
+    dt = F.softplus(_randn((B, S, H), torch.float32, gen))
+    a_neg = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
+                       * math.log(16.0))
+    args = (_randn((B, S, H, P), dtype, gen), dt, a_neg,
+            _randn((B, S, N), dtype, gen), _randn((B, S, N), dtype, gen))
+    y, h = ops.ssd_scan(*args, chunk=64)
+    plain_y, plain_h = ssd_chunked(*args, chunk=64)
+    naive_y = ref.ssd_ref(*args)[0].float()
+    plain_err = float((plain_y.float() - naive_y).abs().max())
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), naive_y, atol=tol + 2 * plain_err,
+                               rtol=tol)
+    torch.testing.assert_close(h, plain_h, atol=SSD_TOL[torch.float32],
+                               rtol=SSD_TOL[torch.float32])
+
+
+def test_ssd_kernel_reads_strided_inputs(gen):
+    """x, B and C sliced out of fused projections, dt a strided view."""
+    B, S, H, P, N = 2, 96, 4, 32, 32
+    xz = _randn((B, S, 2 * H, P), torch.float32, gen)
+    bc = _randn((B, S, 2 * N), torch.float32, gen)
+    dt2 = F.softplus(_randn((B, S, 2 * H), torch.float32, gen)) * 0.1
+    a_neg = -torch.exp(_randn((H,), torch.float32, gen) * 0.2)
+    args = (xz[:, :, H:], dt2[:, :, ::2], a_neg, bc[:, :, :N], bc[:, :, N:])
+    y, h = ops.ssd_scan(*args, chunk=32)
+    want_y, want_h = ref.ssd_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(gen):
+    x, dt, a_neg, bm, cm = _ssd_inputs(1, 64, 2, 48, 16, torch.float32, gen)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_scan(x, dt, a_neg, bm, cm)
+    x, dt, a_neg, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, torch.float32, gen)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.ssd_scan(x, dt, a_neg, bm.bfloat16(), cm)
+    x, dt, a_neg, bm, cm = _ssd_inputs(1, 300, 2, 16, 16, torch.float32, gen)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, dt, a_neg, bm, cm, chunk=256)

@@ -104,7 +104,14 @@ def test_ops_on_host_tensors_take_plain_versions():
     assert torch.equal(ops.flash_attention(q, k, v),
                        ref.attention_ref(q, k, v))
     assert torch.equal(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
-    assert ops.LAUNCHES == {"flash_attention": 0, "rmsnorm": 0}
+    xs, bm = torch.randn((1, 40, 2, 16)), torch.randn((1, 40, 16))
+    dt, a_neg = torch.rand((1, 40, 2)) * 0.1, -torch.rand((2,)) - 0.5
+    y, h = ops.ssd_scan(xs, dt, a_neg, bm, bm, chunk=16)
+    y_ref, h_ref = ref.ssd_ref(xs, dt, a_neg, bm, bm)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+    assert ops.LAUNCHES == {"flash_attention": 0, "rmsnorm": 0,
+                            "ssd_scan": 0}
 
 
 def test_ops_off_host_reach_the_kernel_wrappers():
@@ -117,6 +124,36 @@ def test_ops_off_host_reach_the_kernel_wrappers():
     with pytest.raises(ValueError, match="CUDA"):
         ops.rmsnorm(torch.empty((3, 64), device="meta"),
                     torch.empty((64,), device="meta"))
+    x = torch.empty((1, 64, 2, 16), device="meta")
+    bm = torch.empty((1, 64, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(x, torch.empty((1, 64, 2), device="meta"),
+                     torch.empty((2,), device="meta"), bm, bm)
+
+
+def _meta(*shape, grad=False):
+    return torch.empty(shape, device="meta", requires_grad=grad)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm", "ssd_scan"])
+def test_ops_off_host_refuse_gradients(kernel):
+    """The kernels are forward-only: a tensor off the host that requires
+    grad raises under grad mode rather than losing its gradient, and goes
+    on to the kernel wrapper under no_grad."""
+    args = {
+        "flash_attention": lambda g: (_meta(1, 64, 4, 32, grad=g),
+                                      _meta(1, 64, 2, 32), _meta(1, 64, 2, 32)),
+        "rmsnorm": lambda g: (_meta(3, 64), _meta(64, grad=g)),
+        "ssd_scan": lambda g: (_meta(1, 64, 2, 16, grad=g), _meta(1, 64, 2),
+                               _meta(2), _meta(1, 64, 16), _meta(1, 64, 16)),
+    }[kernel]
+    fn = getattr(ops, kernel)
+    with pytest.raises(RuntimeError, match="forward-only.*Slice 3"):
+        fn(*args(True))
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fn(*args(True))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args(False))
 
 
 def test_importing_ops_does_not_import_triton():

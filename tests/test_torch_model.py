@@ -4,7 +4,8 @@ JAX initialises the parameters; ``params_from_jax`` carries them over leaf
 by leaf as numpy.  Prefill logits and every cache leaf, then several decode
 steps, must agree at 1e-4 in fp32: the reference's golden tolerance
 (``tests/md/test_golden.py:11``).  reduced(glm4-9b) is the GQA dense
-model; reduced(phi4-mini-3.8b) adds tied embeddings.
+model; reduced(phi4-mini-3.8b) adds tied embeddings; reduced(mamba2-370m)
+is the attention-free SSM model, whose caches are the conv and SSM states.
 """
 
 import dataclasses
@@ -27,7 +28,7 @@ from repro_torch.models.convert import flatten, params_from_jax
 from repro_torch.serve import ServeEngine
 
 TOL = 1e-4
-ARCHS = ["glm4-9b", "phi4-mini-3.8b"]
+ARCHS = ["glm4-9b", "phi4-mini-3.8b", "mamba2-370m"]
 
 
 def _close(got, want, tol=TOL, msg=""):
@@ -152,7 +153,12 @@ def test_decode_attention_matches_jax():
 
 
 def test_unported_families_raise():
-    for arch, what in [("kimi-k2-1t-a32b", "MoE"), ("mamba2-370m", "SSM")]:
+    """MoE (kimi, and jamba's MoE layers) still raises; the SSM family no
+    longer does."""
+    for arch in ("kimi-k2-1t-a32b", "jamba-v0.1-52b"):
         cfg = configs.reduced(configs.get_config(arch))
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(NotImplementedError, match="MoE"):
             init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cfg = configs.reduced(configs.get_config("mamba2-370m"))
+    assert "blocks.pos0.ssm.a_log" in init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")

@@ -30,7 +30,8 @@ from repro_torch.serve import ServeEngine
 SRC = Path(__file__).resolve().parent.parent / "src"
 
 
-@pytest.fixture(scope="module", params=["glm4-9b", "phi4-mini-3.8b"])
+@pytest.fixture(scope="module",
+                params=["glm4-9b", "phi4-mini-3.8b", "mamba2-370m"])
 def engines(request):
     cfg = configs.reduced(configs.get_config(request.param))
     jcfg = jconfigs.reduced(jconfigs.get_config(request.param))
@@ -83,12 +84,22 @@ def test_sampling_path(engines):
     assert torch.equal(out, again)
 
 
-def test_cli_on_host_exits_zero():
+def _run_cli(*args):
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-         "--device", "cpu", "--steps", "4"],
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args,
+         "--reduced", "--device", "cpu", "--steps", "4"],
         env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_on_host_exits_zero():
+    proc = _run_cli()
+    assert proc.returncode == 0, proc.stderr
+    assert "generated (4, 4) on cpu" in proc.stdout
+
+
+def test_cli_on_host_serves_mamba2():
+    proc = _run_cli("--arch", "mamba2-370m")
     assert proc.returncode == 0, proc.stderr
     assert "generated (4, 4) on cpu" in proc.stdout
 

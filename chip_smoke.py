@@ -14,16 +14,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    y and final state, against the naive recurrence and the chunked plain
    form at the reference's sweep shapes, mamba2's heads at a ragged S = 200
    and a prompt shorter than a chunk, ragged lengths included, and at the
-   serving shape with dt and A drawn as mamba2's block makes them; then each
-   kernel's, its plain version's and a library call's times at its serving
-   shape, beside the bound the card's data sheet gives.
+   serving shape with dt and A drawn as mamba2's block makes them.  bf16
+   flash attention and SSD inputs take the tensor-core kernels, fp32 ones
+   the CUDA-core kernels; the bf16 routes are also checked at every head
+   dim (flash) and every head dim and chunk tile (SSD), on strided views,
+   and refusing a misaligned stride, and each call's route is checked.
+   Then each kernel's (per route), its plain version's and a library
+   call's times at its serving shape, beside the bound the card's data
+   sheet gives and the achieved TFLOP/s and GB/s.
 3. parity: each model at full width cut to 2 layers, fp32, served on the
-   card (kernels) and on the host (plain versions): logits and caches (K/V,
-   conv and SSM states) within 1e-3, identical greedy tokens.
+   card (CUDA-core kernels) and on the host (plain versions): logits and
+   caches (K/V, conv and SSM states) within 1e-3, identical greedy tokens.
+   Then in bf16 on the card (tensor-core kernels) against the host's fp32
+   forward from the same bf16-rounded parameters: prefill logits and caches
+   within BF16_PARITY_TOL of their scale, the same first greedy token.
 4. serve: each full model in bf16 through ``repro_torch.launch.serve.main``
    (glm4-9b: 40 layers, batch 4, prompt 1024, 32 steps; mamba2-370m: 48
    layers, batch 8, prompt 2048, 32 steps), with the kernels' launch counts
-   set to 0 just before and read just after the measured run.
+   set to 0 just before and read just after the measured run: every flash
+   and SSD launch on the tensor-core route.
 5. decode share: one decode step of each model timed eagerly and replayed
    from a CUDA graph, to show how much of an eager step the device is busy.
 
@@ -54,17 +63,19 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
-from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 GLM, MAMBA = "glm4-9b", "mamba2-370m"
 SERVE = {GLM: {"batch": 4, "prompt_len": 1024, "steps": 32},
          MAMBA: {"batch": 8, "prompt_len": 2048, "steps": 32}}
-# Dense peaks from NVIDIA's data sheets: (memory bytes/s, bf16 tensor FLOP/s).
-PEAKS = {"H100 SXM": (3.35e12, 989e12), "H100 PCIe": (2.0e12, 756e12),
-         "H100 NVL": (3.9e12, 835e12)}
+# Dense peaks from NVIDIA's data sheets: (memory bytes/s, bf16 tensor FLOP/s,
+# fp32 FLOP/s outside the tensor cores).
+PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
+         "H100 PCIe": (2.0e12, 756e12, 51e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12)}
 # The reference's own pins (tests/test_kernels.py:36-38, 147).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -83,6 +94,28 @@ SSD_CASES = [         # (B, S, H, P, N, chunk)
     (2, 40, 32, 64, 128, 64),    # a prompt shorter than one chunk
 ]
 PARITY_TOL = 1e-3
+# bf16 card forward vs fp32 host forward: each matmul output, norm and
+# residual add rounds to bf16 (relative 2^-9), ~15 times over 2 layers, so
+# logits and caches differ by ~1-2% of their scale; 5% of the largest |value|
+# passes that and fails a broken kernel, whose error is of the scale itself.
+BF16_PARITY_TOL = 5e-2
+FLASH_TC_CASES = [    # (B, Sq, Skv, H, KH), each hd, bf16
+    (1, 128, 128, 2, 2),
+    (2, 200, 200, 8, 2),         # ragged last q tile and KV tile
+    (1, 72, 200, 4, 1),          # Sq != Skv, non-causal only
+]
+SSD_TC_CASES = [      # (P, chunk tile, S), bf16, B 2, H 8, N 128
+    (P, tile, S) for P in (16, 32, 64) for tile in (16, 32, 64, 128)
+    for S in (200, 40)]  # a ragged last chunk; a prompt shorter than some
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+
+
+def expect_routes(name, dtype, before):
+    """``name`` was launched once since ``before`` and by ``dtype``'s route."""
+    got = {r: ops.ROUTE_LAUNCHES[name][r] - before[r] for r in before}
+    want = {r: int(r == ROUTES[dtype]) for r in before}
+    if got != want:
+        raise AssertionError(f"{name} {dtype}: routes {got}, expected {want}")
 
 
 def emit(**row):
@@ -192,7 +225,9 @@ def phase_kernels():
                 q = randn((B, S, H, hd), dtype, gen)
                 k = randn((B, S, KH, hd), dtype, gen)
                 v = randn((B, S, KH, hd), dtype, gen)
+                before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
                 got = ops.flash_attention(q, k, v, causal=causal)
+                expect_routes("flash_attention", dtype, before)
                 want = ref.attention_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 check_close(f"flash B={B} S={S} {dtype} causal={causal}",
@@ -209,39 +244,143 @@ def phase_kernels():
     for B, S, H, P, N, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(B, S, H, P, N, dtype, gen)
+            before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
             y, h = ops.ssd_scan(*args, chunk=chunk)
+            expect_routes("ssd_scan", dtype, before)
             case = f"ssd B={B} S={S} H={H} P={P} N={N} L={chunk} {dtype}"
             for plain, (want_y, want_h) in (
                     ("ssd_ref", ref.ssd_ref(*args)),
-                    ("ssd_chunked", ssd_chunked(*args, chunk=chunk))):
+                    ("ssd_chunked", ref.ssd_chunked(*args, chunk=chunk))):
                 torch.cuda.synchronize()
                 check_close(f"{case} y vs {plain}", y, want_y, SSD_TOL[dtype])
                 check_close(f"{case} h_final vs {plain}", h, want_h,
                             SSD_TOL[dtype])
+    phase_tensor_core_checks(gen)
+    return phase_timing(gen)
 
-    _, (bw, flops) = peaks(torch.cuda.get_device_name(0))
+
+def phase_tensor_core_checks(gen):
+    """The bf16 tensor-core routes at every head dim (flash) and every head
+    dim and chunk tile (SSD), on strided views, and refusing a stride they
+    cannot address.  SSD h_final is held at the fp32 pin: both sides form it
+    in fp32 from the same bf16 inputs."""
     bf16 = torch.bfloat16
-    B, S = 4, 1024
-    q, k, v = (randn((B, S, n, hd), bf16, gen) for n in (H, KH, KH))
-    err = check_close("flash serving shape", ops.flash_attention(q, k, v),
-                      ref.attention_ref(q, k, v), FLASH_TOL[bf16])
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    work = 4 * B * H * hd * (S * (S + 1) // 2)   # causal (q, k) pairs
-    flash = {
-        "name": "flash_attention", "route": "cuda", "impl": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:69",
-        "tpu": "kernels/flash_attention.py::flash_attention_fwd",
-        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KH},{hd}) bf16 causal",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v)),
-        "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "bytes": nbytes, "flops": work,
-        "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
-    }
+    for hd in HEAD_DIMS:
+        for B, Sq, Skv, H, KH in FLASH_TC_CASES:
+            for causal in (True, False):
+                if causal and Sq != Skv:
+                    continue
+                q = randn((B, Sq, H, hd), bf16, gen)
+                k = randn((B, Skv, KH, hd), bf16, gen)
+                v = randn((B, Skv, KH, hd), bf16, gen)
+                before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+                got = ops.flash_attention(q, k, v, causal=causal)
+                expect_routes("flash_attention", bf16, before)
+                torch.cuda.synchronize()
+                check_close(f"flash tc hd={hd} B={B} Sq={Sq} Skv={Skv} H={H} "
+                            f"KH={KH} causal={causal}", got,
+                            ref.attention_ref(q, k, v, causal=causal),
+                            FLASH_TOL[bf16])
+    qkv = randn((2, 96, 12, 64), bf16, gen)   # q, k, v sliced from one tensor
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    check_close("flash tc strided q/k/v", ops.flash_attention(q, k, v),
+                ref.attention_ref(q, k, v), FLASH_TOL[bf16])
+    buf = randn((1, 64, 4 * 64 + 4), bf16, gen)
+    refuse("flash tc step stride 260", lambda: ops.flash_attention(
+        *[buf.as_strided((1, 64, 4, 64), (64 * 260, 260, 64, 1))] * 3))
+
+    for P, tile, S in SSD_TC_CASES:
+        args = ssd_inputs(2, S, 8, P, 128, bf16, gen)
+        before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
+        y, h = ops.ssd_scan(*args, chunk=tile)
+        expect_routes("ssd_scan", bf16, before)
+        case = f"ssd tc B=2 S={S} H=8 P={P} N=128 L={tile}"
+        for plain, (want_y, want_h) in (
+                ("ssd_ref", ref.ssd_ref(*args)),
+                ("ssd_chunked", ref.ssd_chunked(*args, chunk=tile))):
+            torch.cuda.synchronize()
+            check_close(f"{case} y vs {plain}", y, want_y, SSD_TOL[bf16])
+            check_close(f"{case} h_final vs {plain}", h, want_h,
+                        SSD_TOL[torch.float32])
+    xz = randn((2, 96, 8, 32), bf16, gen)     # x, B, C sliced, dt strided
+    bc = randn((2, 96, 64), bf16, gen)
+    _, dt2, a_neg, _, _ = ssd_inputs(2, 96, 8, 32, 32, bf16, gen)
+    args = (xz[:, :, 4:], dt2[:, :, ::2], a_neg[:4], bc[:, :, :32],
+            bc[:, :, 32:])
+    y, h = ops.ssd_scan(*args, chunk=32)
+    want_y, want_h = ref.ssd_ref(*args)
+    check_close("ssd tc strided y", y, want_y, SSD_TOL[bf16])
+    check_close("ssd tc strided h_final", h, want_h, SSD_TOL[torch.float32])
+    x, dt, a_neg, bm, cm = ssd_inputs(1, 64, 2, 16, 16, bf16, gen)
+    refuse("ssd tc B stride 20", lambda: ops.ssd_scan(
+        x, dt, a_neg, randn((1, 64, 20), bf16, gen)[:, :, :16], cm))
+
+
+def refuse(case, fn):
+    """``fn`` must raise ValueError (and launch nothing)."""
+    before = {k: dict(v) for k, v in ops.ROUTE_LAUNCHES.items()}
+    try:
+        fn()
+    except ValueError as e:
+        if ops.ROUTE_LAUNCHES != before:
+            raise AssertionError(f"{case}: launched before refusing") from e
+        emit(phase="check", case=case, refused=str(e))
+        return
+    raise AssertionError(f"{case}: accepted, should raise ValueError")
+
+
+def timing_row(name, route, dtype, cores, source, replaces, tpu, shape,
+               err, fn, plain, library, nbytes, work, peak_flops, iters=20):
+    bw = peaks(torch.cuda.get_device_name(0))[1][0]
+    row = {"name": name, "route": route, "impl": route, "dtype": str(dtype),
+           "cores": cores, "source": source, "replaces": replaces, "tpu": tpu,
+           "shape": shape, "max_abs_err": err,
+           "ms": cuda_ms(fn, iters=iters),
+           "plain_ms": cuda_ms(plain, iters=max(3, iters // 4)),
+           "library_ms": None if library is None else cuda_ms(library,
+                                                              iters=iters),
+           "bytes": nbytes, "flops": work,
+           "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / peak_flops * 1e3}
+    row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["flops_ms"]
+                       else "operations")
+    row["tflops"] = work / row["ms"] / 1e9
+    row["gbps"] = nbytes / row["ms"] / 1e6
+    emit(phase="timing", **row)
+    return row
+
+
+def phase_timing(gen):
+    """Each kernel's, per route, its plain version's and a library call's
+    times at its serving shape (the bf16 rows are the serving route; the
+    fp32 rows time the CUDA-core kernels at the same shapes)."""
+    _, (_, flops_bf16, flops_fp32) = peaks(torch.cuda.get_device_name(0))
+    bf16 = torch.bfloat16
+    rows = []
+    B, S, H, KH, hd = 4, 1024, 32, 2, 128
+    for dtype in (bf16, torch.float32):
+        q, k, v = (randn((B, S, n, hd), dtype, gen) for n in (H, KH, KH))
+        err = check_close(f"flash serving shape {dtype}",
+                          ops.flash_attention(q, k, v),
+                          ref.attention_ref(q, k, v), FLASH_TOL[dtype])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        size = dtype.itemsize
+        tc = dtype == bf16
+        rows.append(timing_row(
+            "flash_attention" if tc else "flash_attention_fp32", "cuda",
+            dtype, "tensor (wgmma)" if tc else "CUDA cores",
+            "src/repro_torch/kernels/csrc/flash_attention"
+            + ("_tc.cu" if tc else ".cu"),
+            "src/repro/kernels/flash_attention.py:69",
+            "kernels/flash_attention.py::flash_attention_fwd",
+            f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KH},{hd}) {dtype} causal",
+            err, lambda: ops.flash_attention(q, k, v),
+            lambda: ref.attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            size * (2 * q.numel() + k.numel() + v.numel()),
+            4 * B * H * hd * (S * (S + 1) // 2),   # causal (q, k) pairs
+            flops_bf16 if tc else flops_fp32))
 
     d = 4096   # the norm timed at glm4-9b's prefill
     x = randn((B * S, d), bf16, gen)
@@ -249,70 +388,83 @@ def phase_kernels():
     w_lib = w.to(bf16)   # F.rms_norm takes its weight in x's dtype
     err = check_close("rmsnorm serving shape", ops.rmsnorm(x, w),
                       ref.rmsnorm_ref(x, w), NORM_TOL[bf16])
-    nbytes = 2 * x.numel() * 2 + w.numel() * 4
-    work = 4 * x.numel()
-    norm = {
-        "name": "rmsnorm", "route": "triton", "impl": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm.py",
-        "replaces": "src/repro/kernels/rmsnorm.py:24",
-        "tpu": "kernels/rmsnorm.py::rmsnorm_fwd",
-        "shape": f"x ({B * S},{d}) bf16, w ({d},) fp32",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.rmsnorm(x, w), iters=100),
-        "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, w), iters=100),
-        "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6),
-                              iters=100),
-        "bytes": nbytes, "flops": work,
-        "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
-    }
+    rows.append(timing_row(
+        "rmsnorm", "triton", bf16, "CUDA cores",
+        "src/repro_torch/kernels/rmsnorm.py",
+        "src/repro/kernels/rmsnorm.py:24", "kernels/rmsnorm.py::rmsnorm_fwd",
+        f"x ({B * S},{d}) bf16, w ({d},) fp32", err,
+        lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+        lambda: F.rms_norm(x, (d,), w_lib, 1e-6),
+        2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel(), flops_bf16,
+        iters=100))
 
-    # the SSD scan at mamba2-370m's prefill of the serve phase
+    # the SSD scan at mamba2-370m's prefill of the serve phase: bf16 with dt
+    # and A drawn as the block makes them; fp32 at the sweep's draws, where
+    # the fp32 pin holds between two chunked forms (PERF.md)
     B, S, H, P, N, L = 8, 2048, 32, 64, 128, 64
-    args = ssd_inputs(B, S, H, P, N, bf16, gen, model=True)
-    y, h = ops.ssd_scan(*args, chunk=L)
-    want_y, want_h = ssd_chunked(*args, chunk=L)
-    err = check_close("ssd serving shape y", y, want_y, SSD_TOL[bf16])
-    # both sides form the state in fp32 from the same bf16 inputs
-    err = max(err, check_close("ssd serving shape h_final", h, want_h,
-                               SSD_TOL[torch.float32]))
     nc = -(-S // L)
-    nbytes = (2 * 2 * B * S * H * P + 4 * B * S * H + 4 * H
-              + 2 * 2 * B * S * N + 4 * B * H * P * N)
     # C B^T once per (batch, chunk); per head and chunk the intra product
     # (2 L^2 P), the inter product (2 L N P) and the state update (2 L P N)
     work = B * nc * 2 * L * L * N + B * H * nc * (2 * L * L * P
                                                   + 4 * L * N * P)
-    ssd = {
-        "name": "ssd_scan", "route": "cuda", "impl": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:60",
-        "tpu": "kernels/ssd_scan.py::ssd_scan_fwd",
-        "shape": f"x ({B},{S},{H},{P}) B/C ({B},{S},{N}) bf16, dt fp32, "
-                 f"chunk {L}",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=10),
-        "plain_ms": cuda_ms(lambda: ssd_chunked(*args, chunk=L), iters=3),
-        "library_ms": None,   # no one PyTorch call computes the SSD scan
-        "bytes": nbytes, "flops": work,
-        "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / flops * 1e3,
-    }
-    rows = [flash, norm, ssd]
-    for row in rows:
-        row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
-        row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["flops_ms"]
-                           else "operations")
-        emit(phase="timing", **row)
+    for dtype in (bf16, torch.float32):
+        tc = dtype == bf16
+        args = ssd_inputs(B, S, H, P, N, dtype, gen, model=tc)
+        y, h = ops.ssd_scan(*args, chunk=L)
+        want_y, want_h = ref.ssd_chunked(*args, chunk=L)
+        err = check_close(f"ssd serving shape y {dtype}", y, want_y,
+                          SSD_TOL[dtype])
+        # both sides form the state in fp32 from the same inputs
+        err = max(err, check_close(f"ssd serving shape h_final {dtype}", h,
+                                   want_h, SSD_TOL[torch.float32]))
+        size = dtype.itemsize
+        rows.append(timing_row(
+            "ssd_scan" if tc else "ssd_scan_fp32", "cuda", dtype,
+            "tensor (mma.sync)" if tc else "CUDA cores",
+            "src/repro_torch/kernels/csrc/ssd_scan"
+            + ("_tc.cu" if tc else ".cu"),
+            "src/repro/kernels/ssd_scan.py:60",
+            "kernels/ssd_scan.py::ssd_scan_fwd",
+            f"x ({B},{S},{H},{P}) B/C ({B},{S},{N}) {dtype}, dt fp32, "
+            f"chunk {L}", err,
+            lambda: ops.ssd_scan(*args, chunk=L),
+            lambda: ref.ssd_chunked(*args, chunk=L),
+            None,   # no one PyTorch call computes the SSD scan
+            (2 * size * B * S * H * P + 4 * B * S * H + 4 * H
+             + 2 * size * B * S * N + 4 * B * H * P * N),
+            work, flops_bf16 if tc else flops_fp32, iters=10))
+    # the bf16 SSD kernel at half and twice the serving batch: 128, 256 and
+    # 512 blocks (one block per (batch, head)) on 132 SMs, two a SM
+    for Bb in (4, 8, 16):
+        args = ssd_inputs(Bb, S, H, P, N, bf16, gen, model=True)
+        emit(phase="ssd_blocks", batch=Bb, blocks=Bb * H,
+             ms=cuda_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=10))
     return rows
 
 
+def snapshot():
+    """The launch counts, by kernel and by route."""
+    return {"launches": dict(ops.LAUNCHES),
+            "routes": {k: dict(v) for k, v in ops.ROUTE_LAUNCHES.items()}}
+
+
+def expect_no_route(arch, snap, route):
+    """No launch of ``route`` in ``snap`` (the other dtype's path)."""
+    used = {k: v[route] for k, v in snap["routes"].items() if v[route]}
+    if used:
+        raise AssertionError(f"{arch}: {route} kernels launched: {used}")
+
+
 def phase_parity(arch):
-    """fp32 ``arch`` at full width, 2 layers: card (kernels) vs host (plain)."""
+    """fp32 ``arch`` at full width, 2 layers: card (CUDA-core kernels) vs
+    host (plain).  Returns the launch counts of the card's run."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     B, S, steps = 2, 200, 8
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = init_params(cfg, gen, "cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
+    ops.reset_launches()
     gpu = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
     cpu = ServeEngine(cfg, {k: t.cpu() for k, t in params.items()},
                       max_seq=S + steps + 8, batch_size=B)
@@ -326,11 +478,69 @@ def phase_parity(arch):
     tok_g = gpu.generate(prompt, steps).cpu()
     tok_c = cpu.generate(prompt.cpu(), steps)
     same = bool(torch.equal(tok_g, tok_c))
+    snap = snapshot()
     emit(phase="parity", arch=arch, greedy_tokens_equal=same, steps=steps,
-         tokens=tok_g[0].tolist())
+         tokens=tok_g[0].tolist(), launches=snap)
     if not same:
         raise AssertionError(f"{arch}: greedy tokens differ: card "
                              f"{tok_g.tolist()} host {tok_c.tolist()}")
+    expect_no_route(arch, snap, "tensor_core")
+    return snap
+
+
+def check_scaled(name, got, want, tol):
+    """max |got - want| <= tol * max |want|; returns the error's share of
+    the scale."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    share = err / max(scale, 1e-30)
+    emit(phase="check", case=name, max_abs_err=err, scale=scale,
+         share=share, tol=tol)
+    if share > tol or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: error {err} is {share:.4f} of the "
+                             f"scale {scale}, above {tol}")
+    return share
+
+
+def phase_parity_bf16(arch):
+    """bf16 ``arch`` at full width, 2 layers, on the card (tensor-core
+    kernels) against the host's fp32 forward from the same bf16-rounded
+    parameters: prefill logits and caches within BF16_PARITY_TOL of their
+    scale, and the same first greedy token in every row.  Returns the launch
+    counts of the card's run."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="bfloat16")
+    B, S = 2, 200
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    ops.reset_launches()
+    gpu = ServeEngine(cfg, params, max_seq=S + 8, batch_size=B)
+    logits_g, cache_g = gpu.prefill(prompt)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    cpu = ServeEngine(dataclasses.replace(cfg, dtype="float32"),
+                      {k: t.float().cpu() for k, t in params.items()},
+                      max_seq=S + 8, batch_size=B)
+    logits_c, cache_c = cpu.prefill(prompt.cpu())
+    check_scaled(f"parity bf16 {arch} prefill logits", logits_g.cpu(),
+                 logits_c, BF16_PARITY_TOL)
+    for name in cache_c:
+        check_scaled(f"parity bf16 {arch} cache {name}", cache_g[name].cpu(),
+                     cache_c[name], BF16_PARITY_TOL)
+    tok_g = logits_g.float().argmax(-1).cpu()
+    tok_c = logits_c.argmax(-1)
+    top2 = torch.topk(logits_c, 2, dim=-1).values
+    emit(phase="parity_bf16", arch=arch, first_token_card=tok_g.tolist(),
+         first_token_host=tok_c.tolist(),
+         host_top2_margin=(top2[:, 0] - top2[:, 1]).tolist(), launches=snap)
+    if not torch.equal(tok_g, tok_c):
+        raise AssertionError(f"{arch}: first greedy tokens differ: card "
+                             f"{tok_g.tolist()} host {tok_c.tolist()}")
+    expect_no_route(arch, snap, "cuda_core")
+    return snap
 
 
 def expected_launches(cfg, steps):
@@ -358,13 +568,15 @@ def phase_serve(arch, smi):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res = serve.main(argv + ["--steps", str(run["steps"])])
-    launches = dict(ops.LAUNCHES)
+    snap = snapshot()
+    launches = snap["launches"]
     peak = torch.cuda.max_memory_allocated()
     tokens = res["tokens"]
     emit(phase="serve", arch=arch, layers=cfg.num_layers, dtype="bfloat16",
          **run, prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          prefill_tok_s=res["prefill_tok_s"], decode_tok_s=res["decode_tok_s"],
-         peak_mem_bytes=peak, launches=launches, nvidia_smi=smi)
+         peak_mem_bytes=peak, launches=launches, routes=snap["routes"],
+         nvidia_smi=smi)
     if not res["logits_finite"]:
         raise AssertionError(f"{arch}: non-finite logits")
     if tokens.shape != (run["batch"], run["steps"]) or int(tokens.min()) < 0 \
@@ -374,7 +586,12 @@ def phase_serve(arch, smi):
     want = expected_launches(cfg, run["steps"])
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want}")
-    return launches
+    for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
+        routes = {"tensor_core": want[name], "cuda_core": 0}
+        if snap["routes"][name] != routes:
+            raise AssertionError(f"{arch}: {name} routes "
+                                 f"{snap['routes'][name]}, expected {routes}")
+    return snap
 
 
 def phase_decode_share(arch, smi):
@@ -414,20 +631,34 @@ def main():
     rows = phase_kernels()
     by_path = {}
     for arch in (GLM, MAMBA):
-        phase_parity(arch)
+        by_path[f"parity fp32 {arch}"] = phase_parity(arch)
+        by_path[f"parity bf16 {arch}"] = phase_parity_bf16(arch)
         by_path[f"serve {arch}"] = phase_serve(arch, smi)
         phase_decode_share(arch, smi)
+    counted = {   # row -> (kernel, route) counted for it; None: all routes
+        "flash_attention": ("flash_attention", "tensor_core"),
+        "flash_attention_fp32": ("flash_attention", "cuda_core"),
+        "rmsnorm": ("rmsnorm", None),
+        "ssd_scan": ("ssd_scan", "tensor_core"),
+        "ssd_scan_fp32": ("ssd_scan", "cuda_core"),
+    }
+
+    def launches_of(row, snap):
+        name, route = counted[row["name"]]
+        return (snap["launches"][name] if route is None
+                else snap["routes"][name][route])
+
     for row in rows:
-        row["launches_by_path"] = {path: launches[row["name"]]
-                                   for path, launches in by_path.items()
-                                   if launches[row["name"]]}
+        row["launches_by_path"] = {path: launches_of(row, snap)
+                                   for path, snap in by_path.items()
+                                   if launches_of(row, snap)}
         row["path"] = ", ".join(row["launches_by_path"])
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on any path")
-    keys = ("name", "route", "impl", "source", "replaces", "tpu", "path",
-            "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "impl", "dtype", "cores", "source", "replaces",
+            "tpu", "path", "launches", "launches_by_path", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "gbps")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

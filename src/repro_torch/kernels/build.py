@@ -4,12 +4,16 @@ Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` under
 the checkout (listed in ``.gitignore``), where ``<hash>`` covers every file
 in ``csrc/`` and the flags, so a changed source rebuilds and an unchanged one
 is reused.  The libraries have a plain C interface and are bound with
-``ctypes``: no PyTorch headers, so a build takes seconds.  All sources are
-compiled at once, one ``nvcc`` each, on first use; nothing runs at import.
+``ctypes``: no PyTorch headers, so a build takes seconds.  ``-lcuda`` links
+``libcuda``, whose ``cuTensorMapEncodeTiled`` encodes the TMA tensor maps on
+the host.  ``.cuh`` headers in ``csrc/`` are shared by the sources that
+include them.  All sources are compiled at once, one ``nvcc`` each, on first
+use; nothing runs at import.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -19,9 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lcuda")
 
 _built: dict[str, Path] = {}
+_bound: dict[tuple[str, str], object] = {}
 
 
 def nvcc_path() -> str:
@@ -85,3 +90,14 @@ def build() -> dict[str, Path]:
             _built.clear()
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return dict(_built)
+
+
+def bind(lib: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<lib>.cu``, built on first use,
+    with its ``argtypes`` and an ``int`` (error code) result."""
+    if (lib, symbol) not in _bound:
+        fn = getattr(ctypes.CDLL(str(build()[lib])), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[(lib, symbol)] = fn
+    return _bound[(lib, symbol)]

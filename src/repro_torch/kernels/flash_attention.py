@@ -1,8 +1,19 @@
-"""Flash attention forward on Hopper: ctypes wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention forward on Hopper: ctypes wrappers of two CUDA kernels.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py::
-flash_attention_fwd`` (``_flash_kernel``).  The kernel is CUDA C++ for
+flash_attention_fwd`` (``_flash_kernel``).  The kernels are CUDA C++ for
 ``sm_90a``, built by ``build.py`` with ``nvcc`` and bound with ``ctypes``.
+
+Dispatch is by dtype, a rule and not a fallback (``ROUTES``):
+
+- **bf16** launches ``csrc/flash_attention_tc.cu`` on the tensor cores
+  (``wgmma``, TMA loads), the serving route.  P is rounded to bf16 for the
+  P V product, which the bf16 pin (2e-2) covers.  A bf16 input it does not
+  take (a stride or base TMA cannot address) raises ``ValueError``.
+- **fp32** launches ``csrc/flash_attention.cu`` on the CUDA cores, whose
+  exact fp32 arithmetic holds the reference's fp32 pin (2e-5).
+
+A failed build or launch raises ``RuntimeError``.
 
 Bound: causal prefill at the serving shape (glm4-9b, B=4, S=1024, bf16)
 does 34.4 GFLOP on ~71 MB, so it is bound by operations (tensor-core time
@@ -10,8 +21,8 @@ does 34.4 GFLOP on ~71 MB, so it is bound by operations (tensor-core time
 S x S scores out of device memory (online softmax over KV tiles in
 registers), reads each KV head once per q tile without materialising the
 GQA repeat, and skips the tiles above the causal diagonal, halving the
-work.  This first version multiplies on the fp32 CUDA cores, not the
-tensor cores; see the source's note.
+work.  Only the bf16 route reaches the tensor cores; see each source's
+note.
 """
 
 from __future__ import annotations
@@ -25,21 +36,14 @@ from . import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# The kernel each dtype launches: the bf16 tensor-core kernel or the fp32
+# CUDA-core one.
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = ctypes.CDLL(str(build.build()["flash_attention"]))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_int64] * 9
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
+         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_ARGS_TC = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def check_inputs(q, k, v):
@@ -71,6 +75,16 @@ def check_inputs(q, k, v):
     if B * H > 65535 or Sq == 0 or Skv == 0:
         raise ValueError(f"flash_attention: B*H = {B * H} (at most 65535) "
                          f"and Sq = {Sq}, Skv = {Skv} (non-zero)")
+    if q.dtype == torch.bfloat16:
+        # TMA addresses each tensor through a map: a 16-byte aligned base and
+        # strides of whole 16-byte units.
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} needs a 16-byte aligned "
+                    f"base and (batch, step, head) strides that are "
+                    f"multiples of 8 elements, got strides "
+                    f"{tuple(t.stride())}")
 
 
 def flash_attention_fwd(q, k, v, *, causal=True):
@@ -84,10 +98,26 @@ def flash_attention_fwd(q, k, v, *, causal=True):
     Skv, KH = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    DTYPES[q.dtype], B, Sq, Skv, H, KH, hd,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    int(causal), 1.0 / math.sqrt(hd), stream)
+    if ROUTES[q.dtype] == "tensor_core":
+        strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                        *v.stride()[:3])
+        fn = build.bind("flash_attention_tc", "flash_attention_tc_fwd",
+                        _ARGS_TC)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                 Sq, Skv, H, KH, hd, strides, int(causal),
+                 1.0 / math.sqrt(hd), stream)
+        if err < 0:
+            raise RuntimeError(f"flash_attention_tc_fwd: a TMA tensor map "
+                               f"could not be encoded (CUresult {-err})")
+        if err != 0:
+            raise RuntimeError(f"flash_attention_tc_fwd launch failed: CUDA "
+                               f"error {err}")
+        return o
+    fn = build.bind("flash_attention", "flash_attention_fwd", _ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             DTYPES[q.dtype], B, Sq, Skv, H, KH, hd,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             int(causal), 1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")

@@ -1,20 +1,34 @@
-"""Mamba2 SSD chunk scan forward on Hopper: ctypes wrapper of ``csrc/ssd_scan.cu``.
+"""Mamba2 SSD chunk scan forward on Hopper: ctypes wrappers of two kernels.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py::
-ssd_scan_fwd`` (``_ssd_kernel``).  The kernel is CUDA C++ for ``sm_90a``,
+ssd_scan_fwd`` (``_ssd_kernel``).  The kernels are CUDA C++ for ``sm_90a``,
 built by ``build.py`` with ``nvcc`` and bound with ``ctypes``.  Beyond the
-TPU kernel it returns the final state (the model's prefill keeps it for
-decode) and takes any sequence length (the ragged last chunk is masked).
+TPU kernel they return the final state (the model's prefill keeps it for
+decode) and take any sequence length (the ragged last chunk is masked).
+
+Dispatch is by the dtype of x, B and C, a rule and not a fallback
+(``ROUTES``):
+
+- **bf16** launches ``csrc/ssd_scan_tc.cu`` on the tensor cores
+  (``mma.sync``, chunks prefetched by ``cp.async``), the serving route.  W,
+  the bf16 copy of the carried state and the scaled B are each split into
+  bf16 hi + lo pairs, so y holds the bf16 pin (5e-2) and the final state
+  the fp32 one (1e-4).  A bf16 input it does
+  not take (a stride or base ``cp.async`` cannot move in 16-byte pieces)
+  raises ``ValueError``.
+- **fp32** launches ``csrc/ssd_scan.cu`` on the CUDA cores, whose exact
+  fp32 arithmetic holds the fp32 pin.
+
+A failed build or launch raises ``RuntimeError``.
 
 Bound: at the serving shape (mamba2-370m, B=8, S=2048, H=32, P=64, N=128,
 chunk 64, bf16) the scan reads x, dt, B and C once and writes y and the
 final state once, ~153 MB, against ~22 GFLOP of chunk products, so it is
 bound by bytes (~46 us on an H100 SXM).  The design keeps the (P, N) state
 and the chunk's L x L weights out of device memory: one block per (batch,
-head) walks the chunks in order with the state in shared memory, so device
-memory sees only the inputs and outputs.  This first version multiplies in
-fp32 on the CUDA cores from shared memory and recomputes C B^T per head,
-so it sits far above that bound; see the source's note and PERF.md.
+head) walks the chunks in order with the state on chip, so device memory
+sees only the inputs and outputs.  See each source's note and
+PERF.md for how close each route comes to that bound.
 """
 
 from __future__ import annotations
@@ -30,20 +44,14 @@ HEAD_DIMS = (16, 32, 64)        # P
 MAX_STATE = 128                 # N, a multiple of 16
 TILES = (16, 32, 64, 128)       # chunk tiles; every (tile, P, N) fits in
                                 # shared memory, the largest in 199 KB
+# The kernel each dtype of x launches: the bf16 tensor-core kernel or the
+# fp32 CUDA-core one.
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = ctypes.CDLL(str(build.build()["ssd_scan"]))
-        fn = lib.ssd_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+         + [ctypes.c_void_p, ctypes.c_void_p])
+_ARGS_TC = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p, ctypes.c_void_p])
 
 
 def tile_for(chunk: int) -> int:
@@ -90,6 +98,14 @@ def check_inputs(x, dt, a_neg, Bm, Cm, chunk):
     L = min(chunk, S)
     if L < 1 or not tile_for(L):
         raise ValueError(f"ssd_scan: chunk {chunk} (at most {TILES[-1]})")
+    if x.dtype == torch.bfloat16:
+        # cp.async moves x, B and C rows in 16-byte pieces.
+        for name, t, dims in (("x", x, 3), ("Bm", Bm, 2), ("Cm", Cm, 2)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:dims]):
+                raise ValueError(
+                    f"ssd_scan: bf16 {name} needs a 16-byte aligned base "
+                    f"and leading strides that are multiples of 8 elements, "
+                    f"got strides {tuple(t.stride())}")
 
 
 def ssd_scan_fwd(x, dt, a_neg, Bm, Cm, *, chunk=64):
@@ -109,10 +125,19 @@ def ssd_scan_fwd(x, dt, a_neg, Bm, Cm, *, chunk=64):
     strides = (ctypes.c_int64 * 10)(*x.stride()[:3], *dt.stride(),
                                      *Bm.stride()[:2], *Cm.stride()[:2])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(),
-                    Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                    h_final.data_ptr(), DTYPES[x.dtype], B, S, H, P, N, L,
-                    tile_for(L), strides, stream)
+    if ROUTES[x.dtype] == "tensor_core":
+        fn = build.bind("ssd_scan_tc", "ssd_scan_tc_fwd", _ARGS_TC)
+        err = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), B, S, H, P,
+                 N, L, tile_for(L), strides, stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_tc_fwd launch failed: CUDA error "
+                               f"{err}")
+        return y, h_final
+    fn = build.bind("ssd_scan", "ssd_scan_fwd", _ARGS)
+    err = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), Bm.data_ptr(),
+             Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), DTYPES[x.dtype],
+             B, S, H, P, N, L, tile_for(L), strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
     return y, h_final

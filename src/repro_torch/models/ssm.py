@@ -2,7 +2,8 @@
 ``repro/models/ssm.py``).
 
 Train and prefill run the chunked SSD scan through ``kernels.ops.ssd_scan``:
-the hand-written CUDA kernel on the card, ``ssd_chunked`` below on the host.
+the hand-written CUDA kernel on the card, ``kernels/ref.py::ssd_chunked`` on
+the host (imported here too, as the reference's ``ssm.py`` defines it).
 ``ssd_chunked`` is the chunk step of the reference written as a Python loop
 over chunks (the reference's ``lax.scan``); the O(1)-state decode step is
 plain PyTorch, as in the reference.
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-exported)
 
 from .common import dense_init, normal_init, rmsnorm
 
@@ -68,63 +70,6 @@ def causal_conv1d(x, w, state=None):
     S = x.shape[1]
     y = sum(xp[:, i:i + S, :] * w[i] for i in range(k))
     return y, xp[:, xp.shape[1] - (k - 1):, :]
-
-
-def ssd_chunked(x, dt, a_neg, Bm, Cm, *, chunk: int, h0=None):
-    """Chunked SSD scan (``ssm.py:68-127``).
-
-    x: (B, S, H, P); dt: (B, S, H) positive steps; a_neg: (H,) negative;
-    Bm, Cm: (B, S, N) (one group); h0: optional (B, H, P, N) initial state.
-    Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32).
-    """
-    Bb, S, H, Pd = x.shape
-    N = Bm.shape[-1]
-    L = min(chunk, S)
-    if S % L:
-        # ragged tail: pad with dt=0 steps -- decay exp(0)=1 and zero input
-        # contribution make padding exact, not approximate.
-        pad = L - S % L
-
-        def pw(t):
-            return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
-
-        y, hT = ssd_chunked(pw(x), pw(dt), a_neg, pw(Bm), pw(Cm),
-                            chunk=chunk, h0=h0)
-        return y[:, :S], hT
-    nc = S // L
-
-    xf = x.float().reshape(Bb, nc, L, H, Pd)
-    dtf = dt.float().reshape(Bb, nc, L, H)
-    Bf = Bm.float().reshape(Bb, nc, L, N)
-    Cf = Cm.float().reshape(Bb, nc, L, N)
-    a = dtf * a_neg[None, None, None, :]                 # (B, nc, L, H) <= 0
-    h = (torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0)
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-
-    ys = []
-    for c in range(nc):
-        xc, dtc, bc, cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
-        acum = torch.cumsum(a[:, c], dim=1)              # (B,L,H) inclusive
-        # ---- intra-chunk (the "duality" quadratic form) ----
-        seg = acum[:, :, None, :] - acum[:, None, :, :]  # (B,L,L,H): l,m
-        # mask BEFORE exp: the anti-causal lanes have seg >> 0
-        seg = torch.where(causal[None, :, :, None], seg,
-                          torch.full_like(seg, -math.inf))
-        w = torch.exp(seg)
-        cb = torch.einsum("bln,bmn->blm", cc, bc)        # (B,L,L)
-        wmat = cb[..., None] * w * dtc[:, None, :, :]    # (B,L,L,H)
-        y_intra = torch.einsum("blmh,bmhp->blhp", wmat, xc)
-        # ---- inter-chunk: contribution of the carried state ----
-        y_inter = (torch.einsum("bln,bhpn->blhp", cc, h)
-                   * torch.exp(acum)[..., None])
-        # ---- state update ----
-        decay_to_end = torch.exp(acum[:, -1:, :] - acum)  # (B,L,H)
-        s_c = torch.einsum("bln,blh,blhp->bhpn", bc, dtc * decay_to_end, xc)
-        h = h * torch.exp(acum[:, -1, :])[:, :, None, None] + s_c
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bb, S, H, Pd)
-    return y.to(x.dtype), h
 
 
 def ssd_decode_step(x, dt, a_neg, Bm, Cm, h):

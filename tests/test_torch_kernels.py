@@ -8,6 +8,7 @@ Tolerances are the reference's own pins (``tests/test_kernels.py``):
 attention 2e-5 in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16.
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -162,3 +163,20 @@ def test_importing_ops_does_not_import_triton():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "ssd_scan"])
+def test_route_is_a_rule_on_the_dtype(module):
+    """bf16 takes the tensor-core kernel and fp32 the CUDA-core one; no
+    other dtype has a route, and host calls count on neither."""
+    wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert wrapper.ROUTES == {torch.bfloat16: "tensor_core",
+                              torch.float32: "cuda_core"}
+    assert set(wrapper.ROUTES) == set(wrapper.DTYPES)
+    ops.reset_launches()
+    xs, bm = torch.randn((1, 40, 2, 16)), torch.randn((1, 40, 16))
+    ops.ssd_scan(xs, torch.rand((1, 40, 2)), -torch.rand((2,)), bm, bm)
+    ops.flash_attention(xs, xs, xs)
+    assert ops.ROUTE_LAUNCHES == {
+        name: {"tensor_core": 0, "cuda_core": 0}
+        for name in ("flash_attention", "ssd_scan")}

@@ -1,9 +1,10 @@
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card and hold
-each hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Two paths are served: glm4-9b (dense attention) and mamba2-370m (SSM).
+Two paths are served, glm4-9b (dense attention) and mamba2-370m (SSM), and
+glm4-9b is trained.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -35,9 +36,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and SSD launch on the tensor-core route.
 5. decode share: one decode step of each model timed eagerly and replayed
    from a CUDA graph, to show how much of an eager step the device is busy.
+6. backward: each kernel and route at its serving shape, gradients of a
+   fixed random cotangent through ``ops.<kernel>`` (the kernel's forward,
+   then the backward that recomputes through the plain version, as
+   ``repro/kernels/ops.py`` does) against the plain function's own
+   autograd, within the forward's pins; the backward timed by CUDA events.
+7. train parity: glm4-9b at full width cut to 2 layers, fp32, batch 2,
+   seq 200 (a ragged flash tile): loss and every grad leaf card (CUDA-core
+   kernels) vs host, then one AdamW step through the train step on the
+   card against the host's update applied leaf by leaf (host memory).
+8. train: glm4-9b in bf16 at full width cut to 8 layers, batch 4, seq 1024,
+   5 AdamW steps through ``repro_torch.launch.train.train`` (the loop of
+   ``train/loop.py``), launch counts set to 0 just before and read just
+   after: 8 flash launches (tensor-core route) and 17 norms a step.  Per
+   step loss, grad norm, skip flag and time; the median step, tokens/s,
+   the model-FLOPs share of the bf16 peak, peak memory, and one more step
+   split into forward, backward and optimizer by CUDA events.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
-so the host's launch cost is not in them.
+so the host's launch cost is not in them.  Backward and train-step times
+are CUDA-event and host-clock times around eager calls.
 
 The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  The weights are random, from a seed.
@@ -62,11 +80,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
+from repro_torch.resilience import nonfinite_flag  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import (batch_to_device, build_loss_fn,  # noqa: E402
+                               build_train_step, init_train_state,
+                               loss_and_grads)
 
 GLM, MAMBA = "glm4-9b", "mamba2-370m"
 SERVE = {GLM: {"batch": 4, "prompt_len": 1024, "steps": 32},
@@ -108,6 +133,9 @@ SSD_TC_CASES = [      # (P, chunk tile, S), bf16, B 2, H 8, N 128
     (P, tile, S) for P in (16, 32, 64) for tile in (16, 32, 64, 128)
     for S in (200, 40)]  # a ragged last chunk; a prompt shorter than some
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+BACKWARD = "plain recompute, as repro/kernels/ops.py"
+# the train cell: glm4-9b's published widths, depth cut from 40 to 8 layers
+TRAIN = {"layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3}
 
 
 def expect_routes(name, dtype, before):
@@ -625,6 +653,245 @@ def phase_decode_share(arch, smi):
          device_busy_share=device_ms / eager_ms, nvidia_smi=smi)
 
 
+def event_ms(fn, iters):
+    """Mean milliseconds of ``fn`` over ``iters`` eager calls, between two
+    CUDA events on the current stream (after one warm-up call)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def backward_row(name, kernel, plain, inputs, tol, iters):
+    """Grads of every input for one random cotangent per output, through
+    ``kernel`` (ops: the kernel forward, the recompute backward) and through
+    ``plain``'s own autograd; returns (max abs error, backward ms)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = [t.detach().requires_grad_() for t in inputs]
+    outs = kernel(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if any(o.grad_fn is None for o in outs):
+        raise AssertionError(f"backward {name}: ops output carries no grad")
+    cots = [torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+            for o in outs]
+    got = torch.autograd.grad(outs, xs, cots, retain_graph=True)
+    want_outs = plain(*xs)
+    want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+    want = torch.autograd.grad(want_outs, xs, cots)
+    torch.cuda.synchronize()
+    err = max(check_close(f"backward {name} d{i}", g, w, tol)
+              for i, (g, w) in enumerate(zip(got, want)))
+    ms = event_ms(lambda: torch.autograd.grad(outs, xs, cots,
+                                              retain_graph=True), iters)
+    emit(phase="backward", name=name, backward=BACKWARD, max_abs_err=err,
+         backward_ms=ms, shapes=[list(t.shape) for t in xs])
+    return err, ms
+
+
+def phase_backward(rows):
+    """Each kernel's backward at its serving shape (PERF.md): flash q
+    (4,1024,32,128) bf16 and fp32, RMSNorm (4096,4096) bf16 with w fp32,
+    SSD x (8,2048,32,64) bf16 and fp32 at mamba2's dt and A draws.  Adds
+    ``backward`` and ``backward_ms`` to each kernel's row."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = {}
+    B, S, H, KH, hd = 4, 1024, 32, 2, 128
+    for dtype, name in ((bf16, "flash_attention"),
+                        (fp32, "flash_attention_fp32")):
+        qkv = [randn((B, S, n, hd), dtype, gen) for n in (H, KH, KH)]
+        out[name] = backward_row(
+            name, ops.flash_attention,
+            lambda q, k, v: ref.blockwise_attention(
+                q, k, v, chunk=min(512, k.shape[1]), causal=True),
+            qkv, FLASH_TOL[dtype], iters=5)
+    x = randn((B * S, 4096), bf16, gen)
+    w = 1.0 + 0.1 * randn((4096,), fp32, gen)
+    out["rmsnorm"] = backward_row("rmsnorm", ops.rmsnorm, ref.rmsnorm_ref,
+                                  (x, w), NORM_TOL[bf16], iters=20)
+    B, S, H, P, N, L = 8, 2048, 32, 64, 128, 64
+    for dtype, name in ((bf16, "ssd_scan"), (fp32, "ssd_scan_fp32")):
+        args = ssd_inputs(B, S, H, P, N, dtype, gen, model=True)
+        out[name] = backward_row(
+            name, lambda *a: ops.ssd_scan(*a, chunk=L),
+            lambda *a: ref.ssd_chunked(*a, chunk=L), args, SSD_TOL[dtype],
+            iters=3)
+    for row in rows:
+        row["backward"] = BACKWARD
+        row["backward_max_abs_err"], row["backward_ms"] = out[row["name"]]
+
+
+def phase_train_parity():
+    """fp32 glm4-9b at full width, 2 layers, batch 2, seq 200: the loss and
+    every grad leaf on the card (CUDA-core kernels) against the host, then
+    one AdamW step of the card's train step against the host's update of
+    each leaf (to the pin, or where the clipped gradient is near Adam's eps
+    to the bound its measured difference allows).  The host holds the fp32
+    params and grads (~13 GB, and the card's grads copied back, ~6.6 GB)
+    and takes its optimizer step one leaf at a time, so its moments exist
+    for one leaf at a time.  Returns the launch counts of the card's run."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=2, dtype="float32")
+    B, S = 2, 200
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         "cuda")
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=0)).batch(0)
+    loss_fn = build_loss_fn(cfg)
+    opt = make_optimizer(cfg.optimizer, total_steps=TRAIN["steps"],
+                         base_lr=TRAIN["lr"])
+    ops.reset_launches()
+    loss_g, _, grads_g = loss_and_grads(loss_fn, params,
+                                        batch_to_device(batch, "cuda"))
+    host = {k: t.cpu() for k, t in params.items()}
+    loss_c, _, grads_c = loss_and_grads(loss_fn, host,
+                                        batch_to_device(batch, "cpu"))
+    check_close("train parity loss", loss_g.cpu(), loss_c, PARITY_TOL)
+    for name in sorted(grads_c):
+        check_scaled(f"train parity grad {name}", grads_g[name].cpu(),
+                     grads_c[name], PARITY_TOL)
+    grads_g = {k: g.cpu() for k, g in grads_g.items()}
+    state, met = build_train_step(cfg, opt)(
+        init_train_state(cfg, params, opt), batch)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    gnorm = global_norm(grads_c)
+    check_close("train parity grad_norm", met["grad_norm"].cpu(), gnorm,
+                PARITY_TOL)
+    scale_c = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
+    scale_g = torch.clamp(1.0 / torch.clamp(met["grad_norm"].cpu(),
+                                            min=1e-12), max=1.0)
+    lr = opt.lr(1)
+    near_eps = 0
+    for name in sorted(host):
+        old = host[name].clone()
+        opt.update({name: grads_c[name]},
+                   {"m": {name: torch.zeros_like(old)},
+                    "v": {name: torch.zeros_like(old)}, "count": 0},
+                   {name: host[name]}, scale=scale_c)
+        # The step in units of lr.  Adam's first step is u = g/(|g| + eps)
+        # (+ the same weight decay on both sides) for the clipped gradient
+        # g: a sign function where |g| >> eps, but near eps a gradient
+        # difference d moves u by up to d eps / (min |g| + eps)^2 (the mean
+        # value bound; min |g| = 0 across a sign change).  So u is held to
+        # the fp32 pin plus that bound of the measured gradient difference:
+        # the pin alone wherever |g| >> eps.
+        u_card = (state["params"][name].cpu() - old) / lr
+        u_host = (host[name] - old) / lr
+        err = (u_card - u_host).abs()
+        pin = PARITY_TOL + PARITY_TOL * u_host.abs()
+        a, b = grads_c[name] * scale_c, grads_g[name] * scale_g
+        lo = torch.where(torch.sign(a) == torch.sign(b),
+                         torch.minimum(a.abs(), b.abs()), 0.0)
+        bound = pin + (a - b).abs() * opt.eps / (lo + opt.eps) ** 2
+        miss = err > pin
+        unexplained = int((err > bound).sum())
+        near_eps += int(miss.sum())
+        emit(phase="check", case=f"train parity AdamW step {name}",
+             max_abs_err=float(err.max()), tol=PARITY_TOL,
+             beyond_pin=int(miss.sum()), beyond_bound=unexplained,
+             max_abs_clipped_grad_beyond_pin=float(a[miss].abs().max())
+             if bool(miss.any()) else 0.0)
+        if unexplained or not torch.isfinite(u_card).all():
+            raise AssertionError(f"train parity {name}: {unexplained} "
+                                 f"elements of the AdamW step off the pin "
+                                 f"and the gradient's bound")
+    emit(phase="train_parity", arch=GLM, layers=2, batch=B, seq=S,
+         loss_card=float(loss_g), loss_host=float(loss_c),
+         grad_norm=float(gnorm), lr=lr, adam_eps=opt.eps,
+         steps_beyond_pin_near_eps=near_eps,
+         launches=snap)
+    expect_no_route("train parity", snap, "tensor_core")
+    want = {"flash_attention": 2 * 2, "rmsnorm": 2 * 5, "ssd_scan": 0}
+    if snap["launches"] != want:
+        raise AssertionError(f"train parity: launches {snap['launches']}, "
+                             f"expected {want}")
+    return snap
+
+
+def step_split(cfg, state, batch, opt):
+    """One more train step, split by CUDA events into forward (to the
+    loss), backward (autograd through the recompute backwards) and the
+    optimizer (global norm, guard flag, AdamW in place)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    params = state["params"]
+    batch = batch_to_device(batch, "cuda")
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = build_loss_fn(cfg)(leaves, batch)
+    ev[1].record()
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    ev[2].record()
+    gnorm = global_norm(grads)
+    if int(nonfinite_flag((loss, grads))):
+        raise AssertionError("train split step: non-finite gradients")
+    opt.update(grads, state["opt"], params,
+               scale=torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
+                                 max=1.0))
+    ev[3].record()
+    ev[3].synchronize()
+    return {part: ev[i].elapsed_time(ev[i + 1]) for i, part in
+            enumerate(("forward_ms", "backward_ms", "optimizer_ms"))}
+
+
+def phase_train(smi):
+    """bf16 glm4-9b at full width, 8 layers, through launch/train.train:
+    5 AdamW steps with the launch counts read around them."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=TRAIN["layers"])
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, hist = launch_train.train(cfg, steps=steps, batch=B, seq=S,
+                                     lr=TRAIN["lr"], seed=0, device="cuda",
+                                     logger=logs.append)
+    snap = snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in state["params"].values())
+    for rec in hist:
+        emit(phase="train_step", arch=GLM, step=rec["step"],
+             loss=rec["loss"], grad_norm=rec["grad_norm"],
+             skipped=rec["skipped"], step_ms=rec["sec"] * 1e3)
+    secs = sorted(rec["sec"] for rec in hist[1:])
+    median_s = (secs[(len(secs) - 1) // 2] + secs[len(secs) // 2]) / 2
+    opt = make_optimizer(cfg.optimizer, total_steps=steps,
+                         base_lr=TRAIN["lr"])
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=0)).batch(steps)
+    split = step_split(cfg, state, batch, opt)
+    flops = 6 * n * B * S
+    peak_bf16 = peaks(torch.cuda.get_device_name(0))[1][1]
+    emit(phase="train", arch=GLM, layers=cfg.num_layers, cut="depth 40 -> 8",
+         dtype="bfloat16", batch=B, seq=S, steps=steps, params=n,
+         losses=[rec["loss"] for rec in hist], median_step_ms_2_5=median_s
+         * 1e3, tokens_per_s=B * S / median_s, model_flops_per_step=flops,
+         model_flops_share_of_bf16_peak=flops / median_s / peak_bf16,
+         bf16_peak_tflops=peak_bf16 / 1e12, peak_mem_bytes=peak,
+         split=split, health=hist.health, launches=snap["launches"],
+         routes=snap["routes"], log=logs, nvidia_smi=smi)
+    if len(hist) != steps or any(not math.isfinite(r["loss"]) for r in hist):
+        raise AssertionError(f"train: losses {[r['loss'] for r in hist]}")
+    if any(r["skipped"] for r in hist) or state["skipped_steps"]:
+        raise AssertionError("train: a step was skipped")
+    want = {"flash_attention": cfg.num_layers * steps,
+            "rmsnorm": (2 * cfg.num_layers + 1) * steps, "ssd_scan": 0}
+    if snap["launches"] != want:
+        raise AssertionError(f"train: launches {snap['launches']}, "
+                             f"expected {want}")
+    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
+    if snap["routes"]["flash_attention"] != routes:
+        raise AssertionError(f"train: flash routes "
+                             f"{snap['routes']['flash_attention']}")
+    return snap
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -635,6 +902,9 @@ def main():
         by_path[f"parity bf16 {arch}"] = phase_parity_bf16(arch)
         by_path[f"serve {arch}"] = phase_serve(arch, smi)
         phase_decode_share(arch, smi)
+    phase_backward(rows)
+    by_path[f"train parity fp32 {GLM}"] = phase_train_parity()
+    by_path[f"train bf16 {GLM}"] = phase_train(smi)
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),
@@ -658,7 +928,8 @@ def main():
             raise AssertionError(f"{row['name']}: no launch on any path")
     keys = ("name", "route", "impl", "dtype", "cores", "source", "replaces",
             "tpu", "path", "launches", "launches_by_path", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "gbps")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "gbps",
+            "backward", "backward_ms", "backward_max_abs_err")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

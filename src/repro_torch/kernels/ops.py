@@ -1,7 +1,8 @@
-"""Dispatch over the kernels by the tensor's device (mirrors ``repro/kernels/ops.py``).
+"""Dispatch over the kernels by the tensor's device, with gradients
+(mirrors ``repro/kernels/ops.py``).
 
-A tensor on the host goes to the plain version (``ref.py``; for the SSD
-scan its chunked form ``ssd_chunked``).  A CUDA tensor launches the
+Forward: a tensor on the host goes to the plain version (``ref.py``; for the
+SSD scan its chunked form ``ssd_chunked``).  A CUDA tensor launches the
 hand-written kernel of its dtype (each wrapper's ``ROUTES``) or raises;
 there is no switch that sends a CUDA tensor to the plain version.
 ``LAUNCHES`` counts every kernel launch, so a run can show that its path
@@ -9,12 +10,17 @@ went through the kernels, and ``ROUTE_LAUNCHES`` counts the launches of
 flash attention and the SSD scan by route: ``tensor_core`` for bf16,
 ``cuda_core`` for fp32.
 
-Forward only: serving needs no gradient.  So a tensor off the host that
-requires grad, under grad mode, raises ``RuntimeError`` instead of losing
-its gradient silently; host tensors flow through the differentiable plain
-versions.  The training path (ROADMAP Queue 1, "Slice 3") wraps the kernels
-in ``torch.autograd.Function``s whose backward recomputes through the plain
-version, as ``repro/kernels/ops.py`` does with ``custom_vjp``.
+Backward: when an input requires grad under grad mode, the call goes
+through a ``torch.autograd.Function`` whose forward is the dispatch above
+and saves only its inputs, and whose backward recomputes through the
+differentiable plain version and returns ``torch.autograd.grad`` of it, as
+the reference's ``custom_vjp``s do (``repro/kernels/ops.py``): flash
+attention through ``ref.blockwise_attention`` at ``chunk = min(512, Skv)``,
+the SSD scan through ``ref.ssd_chunked``, RMSNorm through
+``ref.rmsnorm_ref``.  The reference has no backward Pallas kernel, so the
+port has no backward kernel either.  On the host the ``Function`` is used
+too, so the host tests exercise its backward.  Without grad (serving runs
+under ``torch.inference_mode()``) the dispatch is called directly.
 """
 
 from __future__ import annotations
@@ -40,42 +46,131 @@ def reset_launches():
             routes[route] = 0
 
 
-def _forward_only(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the kernel is forward-only and would drop the gradient; "
-            "its backward comes with the training path (ROADMAP Queue 1, "
-            "\"Slice 3\").  Run under torch.no_grad() or on host tensors.")
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def flash_attention(q, k, v, causal=True):
-    """q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd) -> (B, Sq, H, hd)."""
+def _recompute_grads(ctx, plain, outputs_grad, **kwargs):
+    """Grads of ``plain(*saved inputs, **kwargs)`` for the inputs that need
+    them, recomputed from the saved inputs; None for the others."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = plain(*inputs, **kwargs)
+    outs = out if isinstance(out, tuple) else (out,)
+    pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
+    grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                     wanted, [g for _, g in pairs],
+                                     allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in inputs]
+
+
+# ---------------------------------------------------------------------------
+
+def _flash_fwd(q, k, v, causal):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    _forward_only("flash_attention", q, k, v)
     out = _flash.flash_attention_fwd(q, k, v, causal=causal)
     LAUNCHES["flash_attention"] += 1
     ROUTE_LAUNCHES["flash_attention"][_flash.ROUTES[q.dtype]] += 1
     return out
 
 
-def rmsnorm(x, w, eps=1e-6):
-    """RMSNorm over the last dim; x: (..., d), w: (d,)."""
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    ``ref.blockwise_attention`` (``_fa_bwd``, ``repro/kernels/ops.py``),
+    whose fp32 scores are (B, Sq, H, chunk), never (B, H, Sq, Skv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _flash_fwd(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = ctx.saved_tensors[1]
+        return (*_recompute_grads(ctx, ref.blockwise_attention, (g,),
+                                  chunk=min(512, k.shape[1]),
+                                  causal=ctx.causal), None)
+
+
+def flash_attention(q, k, v, causal=True):
+    """q: (B, Sq, H, hd); k/v: (B, Skv, KH, hd) -> (B, Sq, H, hd)."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+    return _flash_fwd(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+
+def _rmsnorm_fwd(x, w, eps):
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
-    _forward_only("rmsnorm", x, w)
     out = rmsnorm_fwd(x, w, eps=eps)
     LAUNCHES["rmsnorm"] += 1
     return out
 
 
-def ssd_scan(x, dt, a_neg, Bm, Cm, chunk=64):
-    """Mamba2 SSD chunk scan.  x: (B,S,H,P); dt: (B,S,H); a_neg: (H,);
-    Bm/Cm: (B,S,N) -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32)."""
+class RMSNorm(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    ``ref.rmsnorm_ref`` (``_rms_bwd``).  w's grad comes back in w's dtype
+    (fp32 for the model's norms), x's in x's."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_recompute_grads(
+            ctx, lambda x, w: ref.rmsnorm_ref(x, w, ctx.eps), (g,)), None)
+
+
+def rmsnorm(x, w, eps=1e-6):
+    """RMSNorm over the last dim; x: (..., d), w: (d,)."""
+    if _needs_grad(x, w):
+        return RMSNorm.apply(x, w, eps)
+    return _rmsnorm_fwd(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+
+def _ssd_fwd(x, dt, a_neg, Bm, Cm, chunk):
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, a_neg, Bm, Cm, chunk=chunk)
-    _forward_only("ssd_scan", x, dt, a_neg, Bm, Cm)
     out = _ssd.ssd_scan_fwd(x, dt, a_neg, Bm, Cm, chunk=chunk)
     LAUNCHES["ssd_scan"] += 1
     ROUTE_LAUNCHES["ssd_scan"][_ssd.ROUTES[x.dtype]] += 1
     return out
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    ``ref.ssd_chunked`` (``_ssd_bwd``), with grads for all five inputs.
+    The reference's ``ssd_scan`` returns y only; this one also returns the
+    final state, and carries a cotangent for both outputs (an unused
+    h_final contributes nothing)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_neg, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, a_neg, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssd_fwd(x, dt, a_neg, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return (*_recompute_grads(ctx, ref.ssd_chunked, (gy, gh),
+                                  chunk=ctx.chunk), None)
+
+
+def ssd_scan(x, dt, a_neg, Bm, Cm, chunk=64):
+    """Mamba2 SSD chunk scan.  x: (B,S,H,P); dt: (B,S,H); a_neg: (H,);
+    Bm/Cm: (B,S,N) -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32)."""
+    if _needs_grad(x, dt, a_neg, Bm, Cm):
+        return SSDScan.apply(x, dt, a_neg, Bm, Cm, chunk)
+    return _ssd_fwd(x, dt, a_neg, Bm, Cm, chunk)

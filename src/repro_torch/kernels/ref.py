@@ -37,6 +37,44 @@ def attention_ref(q, k, v, *, causal=True):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def blockwise_attention(q, k, v, *, chunk: int, causal: bool = True):
+    """Online-softmax attention over KV chunks (the JAX model's XLA path).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H % KH == 0.
+    Returns (B, Sq, H, hd).  fp32 accumulation; p is cast to q's dtype
+    before the PV product, as in the reference.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    group = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    chunk = min(chunk, Skv)
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    for j in range(0, Skv, chunk):
+        kc, vc = k[:, j:j + chunk], v[:, j:j + chunk]
+        s = torch.einsum("bqhd,bchd->bqhc", q.float(), kc.float()) * scale
+        kv_pos = j + torch.arange(kc.shape[1], device=q.device)
+        if causal:
+            mask = q_pos[:, None] >= kv_pos[None, :]          # (Sq, chunk)
+            s = torch.where(mask[None, :, None, :], s,
+                            torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhc,bchd->bqhd", p.to(q.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def ssd_ref(x, dt, a_neg, Bm, Cm, h0=None):
     """Naive per-step SSD recurrence (``repro/kernels/ref.py:28-52``).
 

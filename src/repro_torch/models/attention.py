@@ -2,9 +2,10 @@
 (mirrors ``repro/models/attention.py``).
 
 Train and prefill attention always go through ``kernels.ops.flash_attention``:
-the hand-written CUDA kernel on the card, its plain version on the host.
-``blockwise_attention`` (the JAX package's XLA online-softmax path) stays as
-a second plain reference for the tests.  Decode is a single-token
+the hand-written CUDA kernel on the card, its plain version on the host,
+and in train mode a backward that recomputes through ``blockwise_attention``
+(the JAX package's XLA online-softmax path, in ``kernels/ref.py`` and
+re-exported here).  Decode is a single-token
 contraction against the KV cache in plain PyTorch, as in the JAX package.
 """
 
@@ -15,6 +16,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import blockwise_attention  # noqa: F401  (re-exported)
 
 from .common import apply_rope, dense_init
 
@@ -34,44 +36,6 @@ def attn_init(cfg, dtype, generator, stacked: int = 0) -> dict:
 
 def _split_heads(x, n_heads, hd):
     return x.reshape(x.shape[:-1] + (n_heads, hd))
-
-
-def blockwise_attention(q, k, v, *, chunk: int, causal: bool = True):
-    """Online-softmax attention over KV chunks (the JAX model's XLA path).
-
-    q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H % KH == 0.
-    Returns (B, Sq, H, hd).  fp32 accumulation; p is cast to q's dtype
-    before the PV product, as in the reference.
-    """
-    B, Sq, H, hd = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    group = H // KH
-    scale = 1.0 / math.sqrt(hd)
-    if group > 1:
-        k = k.repeat_interleave(group, dim=2)
-        v = v.repeat_interleave(group, dim=2)
-    chunk = min(chunk, Skv)
-    q_pos = torch.arange(Sq, device=q.device)
-    m = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
-    for j in range(0, Skv, chunk):
-        kc, vc = k[:, j:j + chunk], v[:, j:j + chunk]
-        s = torch.einsum("bqhd,bchd->bqhc", q.float(), kc.float()) * scale
-        kv_pos = j + torch.arange(kc.shape[1], device=q.device)
-        if causal:
-            mask = q_pos[:, None] >= kv_pos[None, :]          # (Sq, chunk)
-            s = torch.where(mask[None, :, None, :], s,
-                            torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqhc,bchd->bqhd", p.to(q.dtype).float(), vc.float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int):

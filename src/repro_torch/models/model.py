@@ -101,11 +101,14 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
     else:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
-    blocks = subtree(params, "blocks")
+    # unbind, not v[s]: in train mode each stacked leaf's grad is then one
+    # stack of the per-superblock grads, not n_super full-size zero-padded
+    # grads summed
+    layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
     n_super = cfg.num_layers // cfg.block_period
     kv_per_block = []
     for s in range(n_super):
-        p_blk = {k: v[s] for k, v in blocks.items()}
+        p_blk = {k: v[s] for k, v in layers.items()}
         x, kv = superblock_apply(p_blk, x, cfg, positions=positions, mode=mode,
                                  cache=cache, index=s, cache_len=cache_len)
         kv_per_block.append(kv)

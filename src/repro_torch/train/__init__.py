@@ -1,0 +1,17 @@
+from .loop import (  # noqa: F401
+    RECOVERABLE,
+    History,
+    LoopConfig,
+    NonFiniteStreakError,
+    StragglerMonitor,
+    restart_on_failure,
+    run,
+)
+from .step import (  # noqa: F401
+    batch_to_device,
+    build_loss_fn,
+    build_train_step,
+    cross_entropy,
+    init_train_state,
+    loss_and_grads,
+)

@@ -10,17 +10,27 @@ in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16; the SSD scan 1e-4 in
 fp32 and 5e-2 in bf16, and 1e-4 on its final state for bf16 inputs too,
 since both sides form it in fp32.  bf16 flash attention and SSD inputs take
 the tensor-core kernels, fp32 ones the CUDA-core kernels
-(``ops.ROUTE_LAUNCHES``).  This file imports no JAX, so it runs where only
-the port and PyTorch are installed.
+(``ops.ROUTE_LAUNCHES``).  Gradients through each kernel's autograd
+Function (the kernel's forward, a backward recomputed through the plain
+version) must equal the plain function's own autograd within the same pins,
+and two train steps of a small model on the card must track the host.
+This file imports no JAX, so it runs where only the port and PyTorch are
+installed.
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import ops, ref
+from repro_torch.models import init_params
+from repro_torch.optim import make_optimizer
+from repro_torch.train import build_train_step, init_train_state
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ssd_scan import TILES
 
@@ -275,3 +285,80 @@ def test_ssd_kernel_refuses_what_it_does_not_take(gen):
     x, dt, a_neg, bm, cm = _ssd_inputs(1, 300, 2, 16, 16, torch.float32, gen)
     with pytest.raises(ValueError, match="chunk"):
         ops.ssd_scan(x, dt, a_neg, bm, cm, chunk=256)
+
+
+def _backward_case(kernel, dtype, gen):
+    """(ops call, plain call, inputs, pin) at a small ragged shape."""
+    if kernel == "flash_attention":
+        inputs = [_randn((2, 200, n, 64), dtype, gen) for n in (8, 2, 2)]
+        return (ops.flash_attention,
+                lambda q, k, v: ref.blockwise_attention(
+                    q, k, v, chunk=min(512, k.shape[1]), causal=True),
+                inputs, FLASH_TOL[dtype])
+    if kernel == "rmsnorm":
+        inputs = [_randn((64, 1024), dtype, gen),
+                  1.0 + 0.1 * _randn((1024,), torch.float32, gen)]
+        return ops.rmsnorm, ref.rmsnorm_ref, inputs, NORM_TOL[dtype]
+    inputs = list(_ssd_inputs(2, 200, 4, 32, 64, dtype, gen))
+    return (lambda *a: ops.ssd_scan(*a, chunk=64),
+            lambda *a: ref.ssd_chunked(*a, chunk=64), inputs, SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm", "ssd_scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_matches_plain_autograd(gen, kernel, dtype):
+    """The grads of every input through ``ops.<kernel>`` (the kernel's
+    forward, launched once; the recompute backward) equal the plain
+    function's own autograd; the SSD carries a cotangent for y and for the
+    final state."""
+    call, plain, inputs, tol = _backward_case(kernel, dtype, gen)
+    xs = [t.detach().requires_grad_() for t in inputs]
+    before = ops.LAUNCHES[kernel]
+    outs = call(*xs)
+    assert ops.LAUNCHES[kernel] == before + 1
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [_randn(o.shape, o.dtype, gen) for o in outs]
+    got = torch.autograd.grad(outs, xs, cots)
+    want_outs = plain(*xs)
+    want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+    want = torch.autograd.grad(want_outs, xs, cots)
+    assert ops.LAUNCHES[kernel] == before + 1      # no kernel in backward
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == xs[i].dtype
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol,
+                                   msg=f"input {i}")
+
+
+def test_train_two_steps_card_vs_host(gen):
+    """Two AdamW steps of reduced glm4-9b in fp32 on the card (CUDA-core
+    flash, Triton norm) and on the host from the same params: losses within
+    1e-4, params within the fp32 parity pin 1e-3, and one flash launch a
+    layer and 2 norms a layer plus the final one a step."""
+    cfg = dataclasses.replace(reduced(get_config("glm4-9b")), grad_accum=1)
+    params = init_params(cfg, gen, "cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=72,
+                                  global_batch=4, seed=0))
+    states, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        opt = make_optimizer(cfg.optimizer, total_steps=10, base_lr=1e-3)
+        step = build_train_step(cfg, opt)
+        state = init_train_state(
+            cfg, {k: t.detach().clone().to(device) for k, t in
+                  params.items()}, opt)
+        ops.reset_launches()
+        losses[device] = []
+        for i in range(2):
+            state, met = step(state, data.batch(i))
+            assert met["skipped"] == 0
+            losses[device].append(float(met["loss"]))
+        states[device] = state
+        if device == "cuda":
+            assert ops.LAUNCHES == {"flash_attention": 2 * cfg.num_layers,
+                                    "rmsnorm": 2 * (2 * cfg.num_layers + 1),
+                                    "ssd_scan": 0}
+    torch.testing.assert_close(torch.tensor(losses["cuda"]),
+                               torch.tensor(losses["cpu"]),
+                               atol=1e-4, rtol=1e-4)
+    for name, p in states["cpu"]["params"].items():
+        torch.testing.assert_close(states["cuda"]["params"][name].cpu(), p,
+                                   atol=1e-3, rtol=1e-3, msg=name)

@@ -5,7 +5,9 @@ the rest of that sweep.  Inputs are made with numpy from a seed and handed
 to both packages.
 
 Tolerances are the reference's own pins (``tests/test_kernels.py``):
-attention 2e-5 in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16.
+attention 2e-5 in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16, and 1e-4
+on gradients through each kernel's autograd Function against the JAX
+``custom_vjp``.
 """
 
 import importlib
@@ -14,11 +16,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm_fwd
@@ -137,10 +141,11 @@ def _meta(*shape, grad=False):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm", "ssd_scan"])
-def test_ops_off_host_refuse_gradients(kernel):
-    """The kernels are forward-only: a tensor off the host that requires
-    grad raises under grad mode rather than losing its gradient, and goes
-    on to the kernel wrapper under no_grad."""
+def test_ops_off_host_with_grad_reach_the_kernel_wrappers(kernel):
+    """A tensor off the host that requires grad goes through the kernel's
+    autograd Function to the kernel wrapper (which refuses a non-CUDA
+    device), under grad mode and under no_grad alike: never to the plain
+    forward."""
     args = {
         "flash_attention": lambda g: (_meta(1, 64, 4, 32, grad=g),
                                       _meta(1, 64, 2, 32), _meta(1, 64, 2, 32)),
@@ -149,12 +154,66 @@ def test_ops_off_host_refuse_gradients(kernel):
                                _meta(2), _meta(1, 64, 16), _meta(1, 64, 16)),
     }[kernel]
     fn = getattr(ops, kernel)
-    with pytest.raises(RuntimeError, match="forward-only.*Slice 3"):
+    with pytest.raises(ValueError, match="CUDA"):
         fn(*args(True))
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         fn(*args(True))
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args(False))
+
+
+def _grad_case(kernel, rng):
+    """(port fn, plain torch fn, JAX fn of impl, numpy inputs) for one
+    kernel at a small shape."""
+    if kernel == "flash_attention":
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((2, 64, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32))]
+        return (ops.flash_attention, ref.attention_ref,
+                lambda impl: lambda *a: jops.flash_attention(*a, True, impl),
+                arrays)
+    if kernel == "rmsnorm":
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((2, 8, 64), (64,))]
+        return (ops.rmsnorm, ref.rmsnorm_ref,
+                lambda impl: lambda *a: jops.rmsnorm(*a, 1e-6, impl), arrays)
+    B, S, H, P, N = 1, 64, 2, 16, 16
+    arrays = [rng.standard_normal((B, S, H, P)).astype(np.float32),
+              (np.log1p(np.exp(rng.standard_normal((B, S, H)))) * 0.1
+               ).astype(np.float32),
+              -np.exp(0.2 * rng.standard_normal(H)).astype(np.float32),
+              rng.standard_normal((B, S, N)).astype(np.float32),
+              rng.standard_normal((B, S, N)).astype(np.float32)]
+    return (lambda *a: ops.ssd_scan(*a, chunk=16)[0],
+            lambda *a: ref.ssd_ref(*a)[0],
+            lambda impl: lambda *a: jops.ssd_scan(*a, 16, impl), arrays)
+
+
+@pytest.mark.parametrize("kernel,impl", [
+    ("flash_attention", "xla"), ("flash_attention", "pallas_interpret"),
+    ("rmsnorm", "xla"), ("rmsnorm", "pallas_interpret"),
+    ("ssd_scan", "xla"), ("ssd_scan", "pallas_interpret"),
+])
+def test_ops_grads_match_jax_custom_vjp(kernel, impl):
+    """On the host, the grads of every input through ``ops.<kernel>``'s
+    autograd Function equal the JAX ``custom_vjp``'s (forward by ``impl``,
+    backward recomputed through the XLA oracle) and the plain function's
+    own autograd, at the reference's VJP pin (1e-4,
+    ``tests/test_kernels.py``)."""
+    rng = np.random.default_rng(7)
+    port_fn, plain_fn, jax_fn, arrays = _grad_case(kernel, rng)
+    inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = port_fn(*inputs)
+    assert out.grad_fn is not None
+    cot = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    got = torch.autograd.grad(out, inputs, torch.from_numpy(cot))
+    plain = torch.autograd.grad(plain_fn(*inputs), inputs,
+                                torch.from_numpy(cot))
+    _, vjp = jax.vjp(jax_fn(impl), *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(cot))
+    for i, (g, p, w) in enumerate(zip(got, plain, want)):
+        _close(g, w, 1e-4)
+        torch.testing.assert_close(g, p, atol=1e-4, rtol=1e-4,
+                                   msg=f"input {i}")
 
 
 def test_importing_ops_does_not_import_triton():

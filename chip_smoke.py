@@ -52,6 +52,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    step loss, grad norm, skip flag and time; the median step, tokens/s,
    the model-FLOPs share of the bf16 peak, peak memory, and one more step
    split into forward, backward and optimizer by CUDA events.
+9. dist: the paper's parallel primitives, every ``LinearOp`` and its
+   adjoint, and the memory operators on CUDA tensors, through
+   ``repro_torch.launch.dist_check`` in a world of
+   ``torch.cuda.device_count()`` ranks over NCCL (one rank per card; one
+   rank on a one-card machine), spawned by ``launch.mesh.spawn``: Eq. 13
+   (a) and (b) at the reference's pins on glm4-9b's activation block (4,
+   1024, 4096) fp32 sharded on seq, its FFN weight (4096, 13696) and
+   64M-element buffers; each collective's forward timed by CUDA events.
+   One line ``{"dist": {...}}``; no kernel of this repo runs in it.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -64,6 +73,8 @@ The line before the last lists the kernels; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -83,7 +94,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dist_check, serve  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
@@ -892,6 +904,32 @@ def phase_train(smi):
     return snap
 
 
+def phase_dist(smi):
+    """Eq. 13 for every primitive, LinearOp and memory operator on the
+    card, in a world of one NCCL rank per card; prints ``{"dist": ...}``
+    with each check's relative error and each collective's time."""
+    gc.collect()
+    torch.cuda.empty_cache()   # the spawned ranks share the card(s)
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(
+        functools.partial(dist_check.run, shapes=dist_check.FULL), world,
+        device="cuda", timeout_s=600)
+    res = ranks[0]
+    print(json.dumps({"dist": {
+        "world": res["world"], "backend": res["backend"],
+        "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "shapes": dist_check.FULL, "seconds": time.perf_counter() - t0,
+        "rel_err": res["rel_err"], "eps": res["eps"],
+        "failed": res["failed"], "timing": res["timing"]}}), flush=True)
+    if res["backend"] != "nccl" or res["world"] != world:
+        raise AssertionError(f"dist: {res['backend']} world {res['world']}, "
+                             f"expected nccl world {world}")
+    failed = sorted({c for r in ranks for c in r["failed"]})
+    if failed:
+        raise AssertionError(f"dist: Eq. 13 fails for {failed}")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -905,6 +943,7 @@ def main():
     phase_backward(rows)
     by_path[f"train parity fp32 {GLM}"] = phase_train_parity()
     by_path[f"train bf16 {GLM}"] = phase_train(smi)
+    phase_dist(smi)
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

@@ -13,12 +13,16 @@ the tensor-core kernels, fp32 ones the CUDA-core kernels
 (``ops.ROUTE_LAUNCHES``).  Gradients through each kernel's autograd
 Function (the kernel's forward, a backward recomputed through the plain
 version) must equal the plain function's own autograd within the same pins,
-and two train steps of a small model on the card must track the host.
+and two train steps of a small model on the card must track the host.  The
+paper's primitives, LinearOps and memory operators pass Eq. 13 on CUDA
+tensors over NCCL, one rank per card (``launch/dist_check.py`` at its small
+shapes); the two-card case skips on a one-card machine.
 This file imports no JAX, so it runs where only the port and PyTorch are
 installed.
 """
 
 import dataclasses
+import functools
 import math
 
 import pytest
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import dist_check, mesh
 from repro_torch.models import init_params
 from repro_torch.optim import make_optimizer
 from repro_torch.train import build_train_step, init_train_state
@@ -362,3 +367,47 @@ def test_train_two_steps_card_vs_host(gen):
     for name, p in states["cpu"]["params"].items():
         torch.testing.assert_close(states["cuda"]["params"][name].cpu(), p,
                                    atol=1e-3, rtol=1e-3, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The paper's primitives over NCCL (launch/dist_check.py), one rank per card.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA mesh runs NCCL on the card")
+    return torch.cuda.device_count()
+
+
+def _dist_suite(world):
+    ranks = mesh.spawn(functools.partial(dist_check.run,
+                                         shapes=dist_check.SMALL), world,
+                       device="cuda", timeout_s=300)
+    for res in ranks:
+        assert res["backend"] == "nccl" and res["world"] == world
+        assert not res["failed"], {c: res["rel_err"][c]
+                                   for c in res["failed"]}
+        assert len(res["rel_err"]) == 47
+    return ranks
+
+
+def test_dist_suite_over_nccl(cards):
+    """Every primitive, LinearOp (and adjoint) and memory operator passes
+    Eq. 13 on CUDA tensors in a world of one NCCL rank per card."""
+    _dist_suite(cards)
+
+
+def test_dist_suite_across_two_cards(cards):
+    """The same suite where the collectives cross cards: two ranks, two
+    cards."""
+    if cards < 2:
+        pytest.skip(f"needs at least 2 cards, found {cards}: NCCL takes one "
+                    f"rank per card, so a multi-rank NCCL world waits for a "
+                    f"multi-card machine")
+    _dist_suite(2)
+
+
+def test_cuda_mesh_refuses_more_ranks_than_cards(cards):
+    with pytest.raises(ValueError, match="one rank per card"):
+        mesh.spawn(dist_check.run, cards + 1, device="cuda", timeout_s=60)

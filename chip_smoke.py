@@ -61,6 +61,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    1024, 4096) fp32 sharded on seq, its FFN weight (4096, 13696) and
    64M-element buffers; each collective's forward timed by CUDA events.
    One line ``{"dist": {...}}``; no kernel of this repo runs in it.
+10. region: the region layer (``core/compile.py::dist_jit``), spawned over
+   NCCL with one rank per card, on a (1, 1) mesh (a (2, 2) mesh where 4
+   cards or more exist).  (a) The paper's §5 LeNet-5 experiment through
+   ``examples/lenet5_distributed_torch.py``'s ``main`` at the published
+   widths (6/16 channels, 120/84/10): distributed vs sequential forward
+   and grads at the initial parameters within the reference's pins (2e-4,
+   2e-3), 60 SGD steps at batch 64 to equal accuracies (within 0.02), ms
+   a step of each.  (b) glm4-9b's attention+MLP sublayer at full width
+   (d_model 4096, 32/2 heads of 128, d_ff 13696; batch 2, seq 1024)
+   through ``sublayer_apply`` with an ``explicit_tp`` policy (the region,
+   its ring matmuls and sharded RMSNorm) against the ordinary
+   ``sublayer_apply`` on the card: fp32 forward within 2e-4 and grads
+   within 5e-4 (CUDA-core flash), bf16 within BF16_PARITY_TOL of scale
+   (tensor-core flash); exactly one flash launch a sublayer on the dtype's
+   route, counted around the region run; forward+backward of both timed by
+   CUDA events in turns (region, ordinary, ordinary, region) and by their
+   device activity (``torch.profiler``).  One line ``{"region": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -85,8 +102,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "examples"))
 os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
 
+import lenet5_distributed_torch as lenet_example  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -98,9 +117,12 @@ from repro_torch.launch import dist_check, serve  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
+                                       sublayer_init)
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.sharding import Policy  # noqa: E402
 from repro_torch.train import (batch_to_device, build_loss_fn,  # noqa: E402
                                build_train_step, init_train_state,
                                loss_and_grads)
@@ -148,6 +170,10 @@ ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 BACKWARD = "plain recompute, as repro/kernels/ops.py"
 # the train cell: glm4-9b's published widths, depth cut from 40 to 8 layers
 TRAIN = {"layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3}
+# the region phase: glm4-9b's sublayer at full width; the reference's pins
+# for the explicit-TP sublayer (tests/md/test_dist_jit.py:77-126)
+REGION = {"batch": 2, "seq": 1024, "iters": 10}
+TP_FWD_TOL, TP_GRAD_TOL = 2e-4, 5e-4
 
 
 def expect_routes(name, dtype, before):
@@ -930,6 +956,106 @@ def phase_dist(smi):
         raise AssertionError(f"dist: Eq. 13 fails for {failed}")
 
 
+def region_tp_rank(rank, world_mesh, *, shape):
+    """glm4-9b's sublayer at full width on this rank: the explicit-TP
+    region against the ordinary sublayer, in fp32 and bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = launch_mesh.make_host_mesh(shape, ("data", "model"), device="cuda")
+    policy = Policy(m, explicit_tp=True, fsdp=False, seq_shard=False)
+    B, S, iters = REGION["batch"], REGION["seq"], REGION["iters"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_config(GLM), dtype=str(dtype)[6:])
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = {k: v[0] for k, v in
+                  sublayer_init(cfg, 0, dtype, gen, 1).items()}
+        x = randn((B, S, cfg.d_model), dtype, gen)
+        cot = randn((B, S, cfg.d_model), dtype, gen)
+        pos = torch.arange(S, device="cuda").expand(B, S)
+
+        def run(pol):
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            y, _ = sublayer_apply(p, x, cfg, 0, positions=pos, mode="train",
+                                  policy=pol)
+            grads = torch.autograd.grad(y, list(p.values()), cot)
+            return y.detach(), dict(zip(p, grads))
+
+        ops.reset_launches()
+        y_tp, g_tp = run(policy)
+        torch.cuda.synchronize()
+        snap = snapshot()
+        y_ref, g_ref = run(None)
+        name = f"region tp sublayer {GLM} {cfg.dtype}"
+        if dtype == torch.float32:
+            err = {"y": check_close(f"{name} y", y_tp, y_ref, TP_FWD_TOL)}
+            err.update({k: check_close(f"{name} grad {k}", g_tp[k], g_ref[k],
+                                       TP_GRAD_TOL) for k in g_ref})
+        else:
+            err = {"y": check_scaled(f"{name} y", y_tp, y_ref,
+                                     BF16_PARITY_TOL)}
+            err.update({k: check_scaled(f"{name} grad {k}", g_tp[k],
+                                        g_ref[k], BF16_PARITY_TOL)
+                        for k in g_ref})
+        del y_tp, g_tp, y_ref, g_ref
+        flash = snap["routes"]["flash_attention"]
+        want = {r: int(r == ROUTES[dtype]) for r in flash}
+        if flash != want or snap["launches"]["flash_attention"] != 1:
+            raise AssertionError(f"{name}: flash launches {snap}, expected "
+                                 f"one on {ROUTES[dtype]}")
+        # in turns (region, ordinary, ordinary, region), then each one's
+        # device time: a gap in the events but not on the device is the
+        # host's dispatch
+        pols = {"region": policy, "ordinary": None}
+        ms = {name: [] for name in pols}
+        for name in ("region", "ordinary", "ordinary", "region"):
+            ms[name].append(event_ms(lambda: run(pols[name]), iters))
+        device = {name: dist_check.device_activity(lambda: run(pol), 3)
+                  for name, pol in pols.items()}
+        out[cfg.dtype] = {"launches": snap, "errors": err,
+                          "fwd_bwd_ms": ms, "device": device, "params": sum(
+                              v.numel() for v in params.values())}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_region(smi):
+    """The region layer on the card: LeNet-5 §5 through the example's main,
+    then glm4-9b's TP sublayer at full width in a world of one NCCL rank
+    per card.  Prints ``{"region": ...}``; returns the sublayer's launch
+    counts by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    shape = (2, 2) if cards >= 4 else (1, 1)
+    t0 = time.perf_counter()
+    lenet = lenet_example.main(["--device", "cuda", "--mesh",
+                                ",".join(map(str, shape))])
+    if not lenet["within_pins"] or abs(lenet["acc_dist"]
+                                       - lenet["acc_seq"]) >= 0.02:
+        raise AssertionError(f"region: LeNet distributed != sequential: "
+                             f"{lenet}")
+    lenet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(functools.partial(region_tp_rank, shape=shape),
+                              math.prod(shape), device="cuda", timeout_s=900)
+    tp = ranks[0]
+    print(json.dumps({"region": {
+        "mesh": list(shape), "world": math.prod(shape), "kind":
+        torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "lenet": {k: lenet[k] for k in (
+            "steps", "batch", "acc_dist", "acc_seq", "ms_per_step_dist",
+            "ms_per_step_seq", "fwd_max_abs_err", "grad_max_abs_err")},
+        "lenet_final_losses": {k: v[-1] for k, v in lenet["losses"].items()},
+        "lenet_seconds": lenet_s,
+        "tp_sublayer": {"arch": GLM, "batch": REGION["batch"],
+                        "seq": REGION["seq"], **tp},
+        "tp_seconds": time.perf_counter() - t0}}), flush=True)
+    return {f"region tp sublayer {dtype} {GLM}": tp[dtype]["launches"]
+            for dtype in tp}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -944,6 +1070,7 @@ def main():
     by_path[f"train parity fp32 {GLM}"] = phase_train_parity()
     by_path[f"train bf16 {GLM}"] = phase_train(smi)
     phase_dist(smi)
+    by_path.update(phase_region(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

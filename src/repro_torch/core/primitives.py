@@ -69,6 +69,8 @@ __all__ = [
     "all_to_all",
     "send_recv",
     "ring_shift",
+    "ring_hop_start",
+    "resolve_axis",
     "batch_scatter",
     "grad_sum_reduce",
     "halo_exchange",
@@ -225,6 +227,30 @@ def _shift_many(items, ax: _Axis, cyclic: bool, tag: int = 0):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return outs
+
+
+def resolve_axis(axis_name) -> _Axis:
+    """Mesh axis ``axis_name`` as this rank sees it (its group, size, this
+    rank's index), resolved against the current mesh NOW.  A ``Function``
+    that communicates in its backward resolves in its forward: the backward
+    runs after the region's ``use_mesh`` has exited."""
+    return _axis(axis_name)
+
+
+def ring_hop_start(x: torch.Tensor, ax: _Axis, offset: int = 1):
+    """Post one hop of a cyclic shift by ``offset`` along the resolved axis
+    ``ax`` and return at once: ``(buffer, requests)``.  The buffer holds
+    the opposite neighbour's ``x`` after every request's ``wait()``; until
+    then ``x`` must not change.  The ring matmuls (``core/overlap.py``) run
+    a partial GEMM between the post and the wait.  No autograd: callers
+    write the adjoint themselves."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dst, src = (ax.index + offset) % ax.size, (ax.index - offset) % ax.size
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, ax.peer(dst), ax.group),
+        dist.P2POp(dist.irecv, out, ax.peer(src), ax.group)])
+    return out, reqs
 
 
 def _block(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:

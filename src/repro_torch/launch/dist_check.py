@@ -149,7 +149,7 @@ def _timer(device: torch.device):
     return run
 
 
-def _device_activity(fn, iters) -> dict:
+def device_activity(fn, iters) -> dict:
     """The CUDA activity ``torch.profiler`` records over ``iters`` calls of
     ``fn``: device ms a call, summed over kernels and copies, and the three
     largest by name (us a call); ``{"error": ...}`` when it records none."""
@@ -193,7 +193,7 @@ def suite(rank: int, mesh, *, shapes=FULL, time_iters: int = 20) -> dict:
             row = {"name": name, "world": k, "shape": list(x.shape),
                    "bytes": nbytes, "ms": ms, "gb_per_s": nbytes / ms / 1e6}
             if device.type == "cuda":   # the device's share of those ms
-                row.update(_device_activity(lambda: fn(x), time_iters))
+                row.update(device_activity(lambda: fn(x), time_iters))
         timing.append(row)
 
     with prim.use_mesh(mesh):

@@ -114,6 +114,15 @@ def _make_mesh(shape, axes, devices=None, *, device=None):
         groups.append(mine)
     if me not in grid:
         return None
+    # Under NCCL, when ``batch_isend_irecv`` is a group's first collective
+    # every rank of the group must join it, and a non-cyclic shift with
+    # |offset| >= 2 leaves some ranks out (``primitives._shift_many``).  One
+    # small all-reduce on each of this rank's groups comes first instead.
+    probe = torch.zeros(1, device=(torch.device("cuda",
+                                                torch.cuda.current_device())
+                                   if device_type == "cuda" else "cpu"))
+    for group in groups:
+        dist.all_reduce(probe, group=group)
     return DeviceMesh.from_group(groups, device_type,
                                  mesh=torch.as_tensor(grid),
                                  mesh_dim_names=axes)

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.core import layers as L
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import blockwise_attention  # noqa: F401  (re-exported)
 
@@ -90,3 +91,38 @@ def attention_block(p, x, cfg, *, positions, mode, cache=None,
 
     out = out.reshape(out.shape[0], out.shape[1], cfg.num_heads * hd)
     return out @ p["wo"], kv
+
+
+def attention_block_tp(p, h, cfg, policy, *, positions):
+    """Explicit-TP attention sub-layer on LOCAL blocks (inside dist_jit).
+
+    h: (B_loc, S, d_model/tp): the residual stream is FEATURE-sharded over
+    the model axis, so the qkv projections are gather-affines (the paper's
+    partitioned broadcast B fused with the GEMM as a ring matmul under
+    ``policy.explicit_tp``) and the output projection is a scatter-affine
+    (the GEMM fused with the adjoint reduce-scatter R).  Heads stay sharded
+    in between, so attention is head-local: ``ops.flash_attention`` on this
+    rank's heads, the hand-written kernel on the card and the plain version
+    on the host, as in ``attention_block``.  The reference attends with
+    ``blockwise_attention`` here; the two agree at Sq == Skv (the flash
+    kernel's top-left causal mask), which train mode always has.
+    Train/prefill math only (no cache plumbing).
+    """
+    if policy.active_ctx_axis is not None:
+        raise NotImplementedError(
+            "explicit-TP attention over a live ctx axis (ring attention) is "
+            "not ported yet (ROADMAP Queue 1 item 7, context parallelism)")
+    ax = policy.model_axis
+    tp = policy.model_size
+    hd = cfg.resolved_head_dim
+    q = _split_heads(L.affine_gather(h, p["wq"], axis=ax),
+                     cfg.num_heads // tp, hd)
+    k = _split_heads(L.affine_gather(h, p["wk"], axis=ax),
+                     cfg.num_kv_heads // tp, hd)
+    v = _split_heads(L.affine_gather(h, p["wv"], axis=ax),
+                     cfg.num_kv_heads // tp, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True)
+    out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
+    return L.affine_scatter(out, p["wo"], axis=ax)

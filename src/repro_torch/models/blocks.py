@@ -4,14 +4,24 @@
 A *superblock* is one period of the architecture's layer pattern; the
 model stacks its parameters on a leading dim.  MoE sub-layers are not
 ported yet (ROADMAP Queue 1, "MoE and expert parallelism").
+
+Given a ``policy`` with ``explicit_tp``, ``sublayer_apply`` runs the
+attention+MLP sublayer in train mode as ONE ``dist_jit`` region over the
+policy's model axis (``_tp_sublayer_apply``): the residual stream enters
+feature-sharded and the four projections ride the ring matmuls.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from .attention import attention_block, attn_init
-from .common import mlp_apply, mlp_init, rmsnorm, subtree
+from repro_torch.core import layers as L
+from repro_torch.core.compile import dist_jit
+from repro_torch.sharding import Partitioned
+
+from .attention import attention_block, attention_block_tp, attn_init
+from .common import mlp_apply, mlp_init, rmsnorm, rmsnorm_sharded, subtree
 from .ssm import ssm_block, ssm_init
 
 
@@ -47,15 +57,83 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
     return p
 
 
+def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:
+    """The explicit-TP fused path covers the attention+MLP sublayer in
+    training; everything else (SSM, MoE, prefill/decode caching) keeps the
+    single-device path.  Unlike the reference's, the fused body attends
+    through ``ops.flash_attention`` as the port's ``attention_block`` does,
+    so there is no flash request for it to refuse."""
+    if policy is None or not getattr(policy, "explicit_tp", False):
+        return False
+    if mode != "train" or mixer != "attn" or ffn not in ("mlp", "none"):
+        return False
+    tp = policy.model_size
+    return (cfg.d_model % tp == 0 and cfg.num_heads % tp == 0
+            and cfg.num_kv_heads % tp == 0 and cfg.d_ff % tp == 0)
+
+
+def _tp_sublayer_body(p, x, positions, cfg, policy, ffn):
+    """Whole sublayer on local blocks: ONE region spans both the attention
+    and FFN halves, so their four ring matmuls (qkv-gather, out-scatter,
+    up-gather, down-scatter) can overlap compute across the halves.
+    x: (B_loc, S, d_model/tp)."""
+    ax = policy.model_axis
+    h = rmsnorm_sharded(x, p["norm_mixer"], ax)
+    x = x + attention_block_tp(subtree(p, "attn"), h, cfg, policy,
+                               positions=positions)
+    if ffn == "mlp":
+        h = rmsnorm_sharded(x, p["norm_ffn"], ax)
+        mp = subtree(p, "mlp")
+        up = L.affine_gather(h, mp["w_up"], axis=ax)
+        if cfg.mlp_type == "swiglu":
+            up = F.silu(L.affine_gather(h, mp["w_gate"], axis=ax)) * up
+        else:
+            up = F.gelu(up, approximate="tanh")
+        x = x + L.affine_scatter(up, mp["w_down"], axis=ax)
+    return x
+
+
+def _tp_sublayer_apply(p, x, cfg, policy, *, positions, ffn):
+    """dist_jit wrapper of the fused sublayer: logical ``Partitioned`` specs
+    at the boundary, the residual's features over the model axis.  The
+    ctx dims resolve replicated here: a live ctx axis raises in
+    ``attention_block_tp`` (ROADMAP Queue 1 item 7)."""
+    m = Partitioned("model")
+    col = Partitioned(None, "model")   # (in, out-shard) projections
+    row = Partitioned("model", None)   # (in-shard, out) projections
+    p_parts = {"norm_mixer": m, "attn.wq": col, "attn.wk": col,
+               "attn.wv": col, "attn.wo": row}
+    if ffn == "mlp":
+        p_parts["norm_ffn"] = m
+        p_parts.update({k: (row if k == "mlp.w_down" else col)
+                        for k in p if k.startswith("mlp.")})
+    p_in = {k: p[k] for k in p_parts}
+    xp = Partitioned("batch", "ctx", "model")
+
+    def body(pp, xx, pos):
+        return _tp_sublayer_body(pp, xx, pos, cfg, policy, ffn)
+
+    return dist_jit(body, policy,
+                    (p_parts, xp, Partitioned("batch", "ctx")),
+                    xp)(p_in, x, positions)
+
+
 def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
-                   index: int = 0, cache_len=None):
+                   index: int = 0, cache_len=None, policy=None):
     """One decoder layer: x + mixer(norm(x)); x + mlp(norm(x)).
 
     ``index`` is this superblock's position in the stack (the slice of the
     stacked decode cache it owns).  Returns (x, state): the mixer's prefill
     cache entries (``{"k", "v"}`` or ``{"conv", "ssm"}``), else None.
+    With a ``policy`` whose ``explicit_tp`` is set, the train-mode
+    attention+MLP sublayer runs as one region over its model axis
+    (``_tp_sublayer_apply``); x, positions and p are then the global
+    values, the same on every rank of the policy's mesh.
     """
     mixer, ffn = layer_kinds(cfg, layer)
+    if _tp_fusable(cfg, policy, mixer, ffn, mode):
+        return _tp_sublayer_apply(p, x, cfg, policy, positions=positions,
+                                  ffn=ffn), None
     h = rmsnorm(x, p["norm_mixer"])
     if mixer == "attn":
         out, kv = attention_block(subtree(p, "attn"), h, cfg,

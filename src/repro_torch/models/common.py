@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import primitives as prim
 from repro_torch.kernels import ops
 
 
@@ -25,6 +26,26 @@ def subtree(params: dict, prefix: str) -> dict:
 def rmsnorm(x, w, eps: float = 1e-6):
     """RMSNorm in fp32, through the kernel dispatch (``kernels/ops.py``)."""
     return ops.rmsnorm(x, w, eps)
+
+
+def rmsnorm_sharded(x, w, axis, eps: float = 1e-6):
+    """RMSNorm with the FEATURE dim sharded over ``axis`` (the explicit-TP
+    residual layout): the mean of squares is assembled in fp32 with the
+    paper's sum-reduce R over ``axis``; w is the matching local shard.
+    Call inside a ``dist_jit`` region.
+
+    The sum is ``all_reduce``: inside a region a replicated result's
+    cotangent is a per-rank contribution (``core/compile.py``), and the
+    reference's ``sum_reduce`` is psum both ways
+    (``repro/core/primitives.py:107-123``), which is the port's
+    ``all_reduce``, not its explicit-copy ``sum_reduce``.  The plain
+    kernel-free form, as in the reference: the kernel normalises whole rows.
+    """
+    xf = x.float()
+    d = x.shape[-1] * prim.axis_size(axis)
+    ss = prim.all_reduce((xf * xf).sum(-1, keepdim=True), axis)
+    out = xf * torch.rsqrt(ss / d + eps)
+    return (out * w.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -2,7 +2,10 @@
 
 ``params_from_jax`` takes the reference's pytree as numpy arrays (the
 caller runs ``jax.device_get``), so this module never imports JAX, and
-returns the port's flat ``{dotted key path: Tensor}`` dict leaf by leaf.
+returns the port's flat ``{dotted key path: Tensor}`` dict leaf by leaf:
+the decoders' trees, a sublayer's (``norm_mixer``, ``attn.wq``, ...) and
+LeNet-5's (``{"conv1": {"w", "b"}, ..., "fc3": {...}}`` -> ``conv1.w``,
+..., ``fc3.b``, the keys of ``models/lenet.py``) alike.
 """
 
 from __future__ import annotations

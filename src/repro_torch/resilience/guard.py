@@ -11,8 +11,8 @@ one-bit flag before the update and runs the update only when it is 0, so a
 skipped step's params and moments are bitwise unchanged because the update
 never ran.  In the reference the flag is the max of every rank's flag, a
 one-bit AllReduce, and the skip a select (``tree_where``) inside the
-compiled step; that all-reduce comes with the distributed slice (ROADMAP
-Queue 1 item 2).  ``tree_where`` and ``combine_flags`` are here for it.
+compiled step; that all-reduce comes with the first multi-rank train step
+(ROADMAP Queue 1 item 6).  ``tree_where`` and ``combine_flags`` are here for it.
 
 - :func:`nonfinite_count`: count of non-finite values in a tree.
 - :func:`nonfinite_flag`: its one-bit form.

@@ -16,7 +16,9 @@ version) must equal the plain function's own autograd within the same pins,
 and two train steps of a small model on the card must track the host.  The
 paper's primitives, LinearOps and memory operators pass Eq. 13 on CUDA
 tensors over NCCL, one rank per card (``launch/dist_check.py`` at its small
-shapes); the two-card case skips on a one-card machine.
+shapes); the two-card case skips on a one-card machine, and the
+three-card non-cyclic shift by 2 (a rank with neither source nor
+destination joins no p2p batch) below three cards.
 This file imports no JAX, so it runs where only the port and PyTorch are
 installed.
 """
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import primitives as prim
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import dist_check, mesh
@@ -406,6 +409,28 @@ def test_dist_suite_across_two_cards(cards):
                     f"rank per card, so a multi-rank NCCL world waits for a "
                     f"multi-card machine")
     _dist_suite(2)
+
+
+def _shift_offset_two(rank, world_mesh):
+    """send_recv by +2 on a non-cyclic axis of 3 ranks: rank 1 has neither
+    a source nor a destination and posts no p2p operation."""
+    m = mesh.make_host_mesh((3,), ("model",), device="cuda")
+    with prim.use_mesh(m):
+        x = torch.full((4,), float(rank + 1), device="cuda",
+                       requires_grad=True)
+        y = prim.send_recv(x, "model", 2)
+        (g,) = torch.autograd.grad(
+            y, x, torch.full((4,), 10.0 * (rank + 1), device="cuda"))
+    return {"y": y.detach(), "g": g}
+
+
+def test_send_recv_offset_two_across_three_cards(cards):
+    if cards < 3:
+        pytest.skip(f"needs at least 3 cards, found {cards}: the shift that "
+                    f"leaves a rank out of the p2p batch needs three ranks")
+    ranks = mesh.spawn(_shift_offset_two, 3, device="cuda", timeout_s=120)
+    assert [float(r["y"][0]) for r in ranks] == [0.0, 0.0, 1.0]
+    assert [float(r["g"][0]) for r in ranks] == [30.0, 0.0, 0.0]
 
 
 def test_cuda_mesh_refuses_more_ranks_than_cards(cards):

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+examples import neither ``jax`` nor anything of the JAX package
+``repro``."""
 
 import ast
 import os
@@ -8,8 +9,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+PORT_EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
+                 ROOT / "examples" / "lenet5_distributed_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + PORT_EXAMPLES
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -19,6 +22,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import lenet5_distributed_torch, quickstart_torch
+for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
+             "repro_torch.core.overlap", "repro_torch.core.layers",
+             "repro_torch.models.lenet"):
+    assert name in names, name
 assert len(names) > 20, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -31,7 +39,8 @@ print(len(names), "modules")
 
 def test_importing_every_module_loads_no_jax_or_repro():
     env = dict(os.environ,
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT),
+                                           str(ROOT / "examples")]))
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -78,6 +78,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    route, counted around the region run; forward+backward of both timed by
    CUDA events in turns (region, ordinary, ordinary, region) and by their
    device activity (``torch.profiler``).  One line ``{"region": {...}}``.
+11. hybrid: the pipeline executor and the hybrid DP x pipe x TP train step
+   (``core/pipeline.py``, ``train/step.py::build_hybrid_train_step``) over
+   NCCL, one rank per card: at mesh (1, 1, 1) on one card (one stage, M
+   microbatches, the rematerialized backward, the fp32 accumulators, the
+   drain tail and the guard's one-bit all-reduce), at (dp, pipe, model) =
+   (1, 2, 2) with explicit TP where 4 cards or more exist (stage hops and
+   TP rings between cards).  Launch counts per rank follow PERF.md §6.  (a) glm4-9b at full width cut to 2
+   layers, fp32, B 4, S 1024, M 4, 1F1B and fill-drain, against the
+   port's single-device ``loss_and_grads`` over the same batch at the
+   reference's pins (loss rtol 2e-5, every grad rtol and atol 5e-4) and
+   each grad leaf within PARITY_TOL of its largest |value|, as phase 7.
+   (b) glm4-9b bf16 at full width cut to 8 layers, B 4, S 1024, M 4, 1F1B,
+   5 AdamW steps through ``launch.train.train_hybrid_rank`` (the CLI's
+   per-rank path), launch counts set to 0 just before and read just after
+   (on one card M x L flash launches, tensor-core route, and M x (2L + 1)
+   norms a step); the median step, tokens/s, peak memory, the bubble, and
+   one more step split by CUDA events into F, B and idle ticks, the
+   boundary shifts, the drain tail and the optimizer.  (c) one step
+   poisoned through the executor's ``grad_fault_hook`` on the last rank
+   only: skipped on every rank, params and moments bitwise unchanged.
+   One line ``{"hybrid": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -116,14 +137,17 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch import dist_check, serve  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import (from_pipeline_params,  # noqa: E402
+                                init_params, init_pipeline_params)
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.sharding import Policy  # noqa: E402
-from repro_torch.train import (batch_to_device, build_loss_fn,  # noqa: E402
+from repro_torch.train import (batch_to_device,  # noqa: E402
+                               build_hybrid_train_step,
+                               build_hybrid_value_and_grad, build_loss_fn,
                                build_train_step, init_train_state,
                                loss_and_grads)
 
@@ -174,6 +198,14 @@ TRAIN = {"layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3}
 # for the explicit-TP sublayer (tests/md/test_dist_jit.py:77-126)
 REGION = {"batch": 2, "seq": 1024, "iters": 10}
 TP_FWD_TOL, TP_GRAD_TOL = 2e-4, 5e-4
+# the hybrid phase: mesh (1, 1, 1); the parity cut (fp32, 2 layers) and
+# the train cut (bf16, 8 layers, phase 8's shape); the reference's pins
+# for the executor (tests/md/test_hybrid.py:85-90), and each grad leaf to
+# PARITY_TOL of its largest |value|
+HYBRID = {"micro": 4, "parity_layers": 2, "batch": 4, "seq": 1024}
+# (dp, pp, cp, tp, ep) by card count: one NCCL rank per card, as phase 10
+HYBRID_MESHES = {1: (1, 1, 1, 1, 1), 4: (1, 2, 1, 2, 1)}
+HYBRID_LOSS_RTOL, HYBRID_GRAD_TOL = 2e-5, 5e-4
 
 
 def expect_routes(name, dtype, before):
@@ -1056,6 +1088,271 @@ def phase_region(smi):
             for dtype in tp}
 
 
+def hybrid_launches(cfg, policy, ticks_of):
+    """The launches this rank makes (PERF.md §6): each layer of its stage
+    launches flash once and, outside explicit TP (whose body normalises
+    with the plain sharded norm), RMSNorm twice, on every B tick and on
+    every F tick but the last stage's (it skips them); the last stage adds
+    the final norm on each B tick.  ``ticks_of(n_f, n_b)`` scales a run's
+    F and B tick counts."""
+    S, M = policy.pipe_size, HYBRID["micro"]
+    s = policy.mesh.get_coordinate()[policy.axis_names.index("pipe")]
+    last = s == S - 1
+    ticks = ticks_of(0 if last else M, M)
+    per = cfg.num_layers // S
+    norms = 0 if policy.explicit_tp else 2 * per
+    return {"flash_attention": per * ticks,
+            "rmsnorm": norms * ticks + (ticks_of(0, M) if last else 0),
+            "ssd_scan": 0}
+
+
+def hybrid_parity(policy):
+    """(a): fp32 glm4-9b cut to 2 layers, B 4, S 1024, M 4, each schedule
+    through ``build_hybrid_value_and_grad`` (global arguments, every rank)
+    against ``loss_and_grads`` on the dense params on rank 0's card: the
+    reference's pins, and each grad leaf also to PARITY_TOL of its own
+    largest |value| as phase 7 holds it (at full width most grad elements
+    lie below the pins' atol, so the pins alone would pass a leaf that
+    lost a microbatch's or a shard's share); returns {schedule: (launches,
+    errors, loss, single-device loss)}, errors with each leaf's scale."""
+    cfg = dataclasses.replace(get_config(GLM),
+                              num_layers=HYBRID["parity_layers"],
+                              dtype="float32")
+    B, S, M = HYBRID["batch"], HYBRID["seq"], HYBRID["micro"]
+    pp = init_pipeline_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), policy.pipe_size,
+        "cuda")
+    batch = batch_to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+        seed=0)).batch(0), "cuda")
+    root = torch.distributed.get_rank() == 0
+    if root:
+        loss_r, _, grads_r = loss_and_grads(build_loss_fn(cfg),
+                                            from_pipeline_params(pp), batch)
+    out = {}
+    for schedule in ("1f1b", "fill_drain"):
+        pvg, _ = build_hybrid_value_and_grad(cfg, policy, num_microbatches=M,
+                                             schedule=schedule)
+        ops.reset_launches()
+        loss, grads = pvg(pp, {"tokens": batch["tokens"].reshape(M, B // M,
+                                                                 S)},
+                          batch["labels"].reshape(M, B // M, S))
+        torch.cuda.synchronize()
+        snap = snapshot()
+        want = hybrid_launches(cfg, policy, lambda f, b: f + b)
+        if (snap["launches"] != want
+                or snap["routes"]["flash_attention"]["cuda_core"]
+                != want["flash_attention"]):
+            raise AssertionError(f"hybrid parity {schedule}: launches "
+                                 f"{snap}, expected {want} (CUDA cores)")
+        err = {}
+        if root:
+            grads = from_pipeline_params(grads)
+            err = {"loss": abs(float(loss) - float(loss_r))
+                   / abs(float(loss_r))}
+            bad = []
+            for k, g in grads.items():
+                d = (g - grads_r[k]).abs()
+                scale = float(grads_r[k].abs().max())
+                err[k] = {"max_abs_err": float(d.max()), "scale": scale}
+                if (bool((d > HYBRID_GRAD_TOL + HYBRID_GRAD_TOL
+                          * grads_r[k].abs()).any())
+                        or err[k]["max_abs_err"] > PARITY_TOL * scale
+                        or not bool(torch.isfinite(g).all())):
+                    bad.append(k)
+            if err["loss"] > HYBRID_LOSS_RTOL or bad:
+                raise AssertionError(
+                    f"hybrid parity {schedule}: loss rel err {err['loss']}, "
+                    f"grads off the pin: {bad}")
+        out[schedule] = (snap, err, float(loss),
+                         float(loss_r) if root else None)
+        del grads
+    return out
+
+
+def hybrid_split(cfg, policy, state, batch, steps):
+    """One more step of the trained state, split by CUDA events at the
+    executor's phase hook into F ticks, B ticks, idle ticks, the boundary
+    shifts (the hop and the wait for the other stage), the drain tail and
+    the optimizer."""
+    marks = []
+
+    def hook(kind):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((kind, ev))
+
+    opt = make_optimizer(cfg.optimizer, total_steps=steps,
+                         base_lr=TRAIN["lr"])
+    step = build_hybrid_train_step(cfg, policy, opt,
+                                   num_microbatches=HYBRID["micro"],
+                                   phase_hook=hook)
+    torch.cuda.synchronize()
+    hook("start")
+    state, met = step(state, batch)
+    hook("end")
+    marks[-1][1].synchronize()
+    split = {}
+    for (kind, a), (_, b) in zip(marks[1:-1], marks[2:]):
+        split[kind] = split.get(kind, 0.0) + a.elapsed_time(b)
+    split["before_first_tick"] = marks[0][1].elapsed_time(marks[1][1])
+    if int(met["skipped"]):
+        raise AssertionError("hybrid split step: skipped")
+    return state, {f"{k}_ms": v for k, v in split.items()}
+
+
+def hybrid_guard(cfg, policy, state, batch, steps):
+    """(c): one step through a fault hook that poisons a gradient leaf on
+    the last rank only; every rank must skip it with params and moments
+    bitwise unchanged (compared against host copies, leaf by leaf)."""
+    leaf = "stage.pos0.mlp.w_up"
+    poisoned = torch.distributed.get_world_size() - 1
+
+    def poison(grads):
+        if torch.distributed.get_rank() != poisoned:
+            return grads
+        return dict(grads, **{leaf: grads[leaf] + float("nan")})
+
+    opt = make_optimizer(cfg.optimizer, total_steps=steps,
+                         base_lr=TRAIN["lr"])
+    step = build_hybrid_train_step(cfg, policy, opt,
+                                   num_microbatches=HYBRID["micro"],
+                                   fault_hook=poison)
+    before = {"params": {k: v.cpu() for k, v in state["params"].items()},
+              "m": {k: v.cpu() for k, v in state["opt"]["m"].items()},
+              "v": {k: v.cpu() for k, v in state["opt"]["v"].items()}}
+    step_before, skipped_before = state["step"], state["skipped_steps"]
+    state, met = step(state, batch)
+    after = {"params": state["params"], "m": state["opt"]["m"],
+             "v": state["opt"]["v"]}
+    changed = [f"{part}.{k}" for part, tree in before.items()
+               for k, v in tree.items() if not torch.equal(after[part][k]
+                                                          .cpu(), v)]
+    out = {"skipped": int(met["skipped"]), "changed": changed,
+           "step": [step_before, state["step"]],
+           "skipped_steps": [skipped_before, state["skipped_steps"]],
+           "poisoned_rank": poisoned, "poisoned_leaf": leaf}
+    if (out["skipped"] != 1 or changed or state["step"] != step_before + 1
+            or state["skipped_steps"] != skipped_before + 1):
+        raise AssertionError(f"hybrid guard: {out}")
+    return out
+
+
+def hybrid_rank(rank, world_mesh, *, mesh):
+    """Phase 11 on this rank of the (dp, pp, cp, tp, ep) ``mesh``: (a)
+    parity, (b) 5 bf16 steps through the CLI's per-rank path, the split
+    step, (c) the guard."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    dp, pp, cp, tp, ep = mesh
+    m = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device="cuda")
+    policy = Policy.for_mesh(m, explicit_tp=tp > 1)
+    out["coordinate"] = dict(zip(policy.axis_names, m.get_coordinate()))
+    t0 = time.perf_counter()
+    parity = hybrid_parity(policy)
+    out["parity"] = {k: {"launches": v[0], "errors": v[1], "loss": v[2],
+                         "loss_single_device": v[3]}
+                     for k, v in parity.items()}
+    out["parity_seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(GLM), num_layers=TRAIN["layers"])
+    B, S, M, steps = TRAIN["batch"], TRAIN["seq"], HYBRID["micro"], \
+        TRAIN["steps"]
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist, policy = launch_train.train_hybrid_rank(
+        cfg, mesh, steps=steps, batch=B, seq=S, microbatches=M,
+        schedule="1f1b", lr=TRAIN["lr"], seed=0, device="cuda",
+        logger=logs.append)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    secs = sorted(rec["sec"] for rec in hist[1:])
+    median_s = (secs[(len(secs) - 1) // 2] + secs[len(secs) // 2]) / 2
+    n = sum(p.numel() for p in state["params"].values())
+    out["train"] = {
+        "arch": GLM, "layers": cfg.num_layers, "cut": "depth 40 -> 8",
+        "dtype": cfg.dtype, "mesh": list(mesh), "batch": B,
+        "seq": S, "microbatches": M, "schedule": "1f1b", "steps": steps,
+        "params_on_rank": n, "losses": [rec["loss"] for rec in hist],
+        "grad_norms": [rec["grad_norm"] for rec in hist],
+        "step_ms": [rec["sec"] * 1e3 for rec in hist],
+        "median_step_ms_2_5": median_s * 1e3,
+        "tokens_per_s": B * S / median_s,
+        "bubble_fraction": hist[-1]["bubble_fraction"],
+        "peak_mem_bytes": peak, "health": hist.health,
+        "launches": snap, "seconds": train_s, "log": logs}
+    if len(hist) != steps or any(not math.isfinite(r["loss"])
+                                 or r["skipped"] for r in hist):
+        raise AssertionError(f"hybrid train: {out['train']['losses']}, "
+                             f"skipped {[r['skipped'] for r in hist]}")
+    want = hybrid_launches(cfg, policy, lambda f, b: steps * (f + b))
+    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
+    if snap["launches"] != want or snap["routes"]["flash_attention"] != routes:
+        raise AssertionError(f"hybrid train: launches {snap}, expected "
+                             f"{want}, flash routes {routes}")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    state, out["split"] = hybrid_split(cfg, policy, state, data.batch(steps),
+                                       steps)
+    out["guard"] = hybrid_guard(cfg, policy, state, data.batch(steps + 1),
+                                steps)
+    return out
+
+
+def phase_hybrid(smi):
+    """Phase 11: the hybrid step over NCCL, one rank per card, at mesh
+    (1, 1, 1) on one card and (dp, pipe, model) = (1, 2, 2) where 4 cards
+    or more exist.  Prints ``{"hybrid": ...}`` (rank 0's results, and each
+    rank's launches, split, peak memory and guard); returns the launch
+    counts by path, summed over the ranks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = HYBRID_MESHES[4 if torch.cuda.device_count() >= 4 else 1]
+    world = math.prod(mesh)
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(functools.partial(hybrid_rank, mesh=mesh),
+                              world, device="cuda", timeout_s=900)
+    res = ranks[0]
+    for r in ranks:
+        if (r["train"]["losses"] != res["train"]["losses"]
+                or {k: v["loss"] for k, v in r["parity"].items()}
+                != {k: v["loss"] for k, v in res["parity"].items()}):
+            raise AssertionError(f"hybrid: rank {r['rank']} disagrees")
+    print(json.dumps({"hybrid": {
+        "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "world": world, "backend": "nccl", **res,
+        "ranks": [{"rank": r["rank"], "coordinate": r["coordinate"],
+                   "launches": r["train"]["launches"]["launches"],
+                   "peak_mem_bytes": r["train"]["peak_mem_bytes"],
+                   "params_on_rank": r["train"]["params_on_rank"],
+                   "split": r["split"], "guard": r["guard"]}
+                  for r in ranks],
+        "seconds": time.perf_counter() - t0}}), flush=True)
+
+    def total(snaps):
+        out = {"launches": {}, "routes": {}}
+        for snap in snaps:
+            for k, v in snap["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for k, rs in snap["routes"].items():
+                mine = out["routes"].setdefault(k, {})
+                for r, v in rs.items():
+                    mine[r] = mine.get(r, 0) + v
+        return out
+
+    paths = {f"hybrid parity fp32 {s} {GLM}": total(
+        r["parity"][s]["launches"] for r in ranks) for s in res["parity"]}
+    paths[f"hybrid bf16 {GLM}"] = total(r["train"]["launches"]
+                                        for r in ranks)
+    return paths
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1071,6 +1368,7 @@ def main():
     by_path[f"train bf16 {GLM}"] = phase_train(smi)
     phase_dist(smi)
     by_path.update(phase_region(smi))
+    by_path.update(phase_hybrid(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

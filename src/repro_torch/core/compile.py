@@ -38,6 +38,7 @@ with the reference's ``SpaceTypeError``s.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any
 
@@ -49,7 +50,8 @@ from . import primitives as prim
 from .linop import PartitionSpec as P
 from .linop import SpaceTypeError
 
-__all__ = ["DistContext", "current_ctx", "dist_jit", "resolve_parts"]
+__all__ = ["DistContext", "current_ctx", "dist_jit", "local_blocks", "region",
+           "resolve_parts"]
 
 
 @dataclass(frozen=True)
@@ -66,6 +68,20 @@ _STACK: list[DistContext] = []
 def current_ctx() -> DistContext | None:
     """The innermost active DistContext, or None outside dist_jit bodies."""
     return _STACK[-1] if _STACK else None
+
+
+@contextlib.contextmanager
+def region(policy):
+    """The context a region body runs in: ``use_mesh(policy.mesh)`` with
+    ``policy`` as the current :class:`DistContext`.  ``dist_jit`` enters
+    it around its body; a caller that already holds this rank's blocks
+    (the hybrid train step) enters it directly."""
+    with prim.use_mesh(policy.mesh):
+        _STACK.append(DistContext(policy))
+        try:
+            yield
+        finally:
+            _STACK.pop()
 
 
 def resolve_parts(parts, policy):
@@ -231,10 +247,17 @@ def dist_jit(fn, policy, in_parts, out_parts):
     def run(*args):
         with prim.use_mesh(mesh):
             local = _map_prefix(_enter(policy), in_specs, args)
-            _STACK.append(DistContext(policy))
-            try:
+            with region(policy):
                 out = fn(*local)
-            finally:
-                _STACK.pop()
             return _map_prefix(_leave(policy), out_specs, out)
     return run
+
+
+def local_blocks(parts, tree, policy):
+    """This rank's block of every leaf of the GLOBAL ``tree`` (held the same
+    on every rank) under the boundary declaration ``parts``: the restriction
+    ``dist_jit`` applies at entry, outside autograd.  A leaf no spec splits
+    comes back as itself, not a copy."""
+    specs = resolve_parts(parts, policy)
+    with torch.no_grad(), prim.use_mesh(policy.mesh):
+        return _map_prefix(_enter(policy), specs, tree)

@@ -79,6 +79,8 @@ __all__ = [
     "halo_mask",
     "axis_size",
     "axis_index",
+    "psum_",
+    "mesh_all_reduce_",
 ]
 
 _MESHES: list = []
@@ -158,12 +160,19 @@ def _all_reduce(x: torch.Tensor, ax: _Axis) -> torch.Tensor:
     return out
 
 
+def _back(out: torch.Tensor, dim: int) -> torch.Tensor:
+    """``out`` with its dim 0 moved back to ``dim``, contiguous: a result
+    is a fresh array, as in JAX, never a permuted view (the kernels take
+    contiguous rows)."""
+    return out.movedim(0, dim).contiguous()
+
+
 def _all_gather(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
     """Tiled all-gather along ``dim``: the k blocks in axis order."""
     xt = _front(x, dim)
     out = xt.new_empty((ax.size * xt.shape[0],) + xt.shape[1:])
     dist.all_gather_into_tensor(out, xt, group=ax.group)
-    return out.movedim(0, dim)
+    return _back(out, dim)
 
 
 def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
@@ -174,7 +183,7 @@ def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
                          f"divisible by axis {ax.name!r} size {ax.size}")
     out = xt.new_empty((xt.shape[0] // ax.size,) + xt.shape[1:])
     _REDUCE_SCATTER(out, xt, group=ax.group)
-    return out.movedim(0, dim)
+    return _back(out, dim)
 
 
 def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
@@ -258,6 +267,39 @@ def _block(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
     n = x.shape[dim] // ax.size
     return x.narrow(dim, ax.index * n, n).clone(
         memory_format=torch.contiguous_format)
+
+
+def psum_(tensors, axes):
+    """In place and outside autograd: every tensor of ``tensors`` summed
+    over each mesh axis of ``axes`` in turn, the reference's ``psum`` over
+    those axes.  An axis of size 1 is skipped (a sum over one rank is the
+    identity).  Every rank of each axis calls it with the same tensors in
+    the same order."""
+    for name in axes:
+        ax = _axis(name)
+        if ax.size > 1:
+            for t in tensors:
+                dist.all_reduce(t, group=ax.group)
+    return tensors
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def mesh_all_reduce_(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """In place and outside autograd: ``x`` reduced (``"sum"`` or
+    ``"max"``) over every rank of the current mesh by ONE all-reduce on
+    the mesh's own group, the reference's ``psum``/``pmax`` over all of
+    ``mesh.axis_names``.  The mesh carries that group as
+    ``all_ranks_group`` (``launch.mesh`` makes it for the pipeline and
+    hybrid meshes)."""
+    group = getattr(current_mesh(), "all_ranks_group", None)
+    if group is None:
+        raise ValueError("mesh_all_reduce_: the current mesh has no group of "
+                         "all its ranks (build it with launch.mesh's "
+                         "make_pipeline_mesh or make_hybrid_mesh)")
+    dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -81,10 +81,17 @@ def init_world(rank: int, world: int, *, device="cuda", port: int,
     _TIMEOUT[:] = [timeout]
 
 
-def _make_mesh(shape, axes, devices=None, *, device=None):
+def _make_mesh(shape, axes, devices=None, *, device=None,
+               all_ranks_group: bool = False):
     """A DeviceMesh of ``shape`` named ``axes`` over ``devices`` (global
     ranks in mesh order; default the first prod(shape) ranks).  Every rank
-    of the world calls this; ranks outside the mesh get None."""
+    of the world calls this; ranks outside the mesh get None.
+
+    ``all_ranks_group`` also makes one group of all the mesh's ranks, kept
+    on the mesh as ``all_ranks_group``, for the one all-reduce over the
+    whole mesh of ``primitives.mesh_all_reduce_`` (the pipeline's guard
+    flag and the hybrid step's clip norm); a 1-D mesh uses its one axis
+    group."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
@@ -112,6 +119,8 @@ def _make_mesh(shape, axes, devices=None, *, device=None):
             if me in row:
                 mine = group
         groups.append(mine)
+    flat = (dist.new_group(grid.ravel().tolist(), timeout=timeout)
+            if all_ranks_group and len(shape) > 1 else None)
     if me not in grid:
         return None
     # Under NCCL, when ``batch_isend_irecv`` is a group's first collective
@@ -121,11 +130,14 @@ def _make_mesh(shape, axes, devices=None, *, device=None):
     probe = torch.zeros(1, device=(torch.device("cuda",
                                                 torch.cuda.current_device())
                                    if device_type == "cuda" else "cpu"))
-    for group in groups:
+    for group in groups + [flat] * (flat is not None):
         dist.all_reduce(probe, group=group)
-    return DeviceMesh.from_group(groups, device_type,
+    mesh = DeviceMesh.from_group(groups, device_type,
                                  mesh=torch.as_tensor(grid),
                                  mesh_dim_names=axes)
+    if all_ranks_group:
+        mesh.all_ranks_group = groups[0] if flat is None else flat
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
@@ -146,7 +158,8 @@ def make_pipeline_mesh(num_stages: int, tp: int = 1, *, device=None):
     """Pipe x tensor 2-D mesh for pipeline parallelism: stage-to-stage
     SendRecv moves along ``pipe``, the TP ring collectives along ``model``
     inside each stage.  The axis names are fixed."""
-    return _make_mesh((num_stages, tp), ("pipe", "model"), device=device)
+    return _make_mesh((num_stages, tp), ("pipe", "model"), device=device,
+                      all_ranks_group=True)
 
 
 def make_hybrid_mesh(dp: int, num_stages: int, cp: int = 1, tp: int = 1,
@@ -177,13 +190,13 @@ def make_hybrid_mesh(dp: int, num_stages: int, cp: int = 1, tp: int = 1,
     if ep == 1:
         if cp == 1:
             return _make_mesh((dp, num_stages, tp), ("data", "pipe", "model"),
-                              devices, device=device)
+                              devices, device=device, all_ranks_group=True)
         return _make_mesh((dp, num_stages, cp, tp),
                           ("data", "pipe", "ctx", "model"), devices,
-                          device=device)
+                          device=device, all_ranks_group=True)
     return _make_mesh((dp, num_stages, cp, tp, ep),
                       ("data", "pipe", "ctx", "model", "ep"), devices,
-                      device=device)
+                      device=device, all_ranks_group=True)
 
 
 def surviving_devices(mesh, lost_axis: str) -> list:

@@ -1,5 +1,4 @@
-"""Training entry point on one device (mirrors the path of
-``repro/launch/train.py`` without ``--hybrid-mesh``).
+"""Training entry point (mirrors ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
         --reduced --device cpu --steps 20 --batch 8 --seq 128
@@ -12,15 +11,30 @@ runs on the host through the kernels' plain versions.  ``train()`` is the
 same path for a caller with a ``ModelConfig`` of its own (for example one
 cut in depth).
 
-Not ported yet, each exits naming its ROADMAP Queue 1 item:
-``--hybrid-mesh`` (items 5-7), ``--elastic`` (items 6 and 10),
-``--fault-plan`` and ``--ckpt-dir`` (item 10).
+Hybrid DP x pipe x TP (DESIGN §5): ``--hybrid-mesh DP,PP,CP,TP,EP`` (or
+DP,PP,CP,TP with EP = 1, or DP,PP,TP with CP = EP = 1) runs the scheduled
+pipeline executor over a (data, pipe, model) mesh, one process per rank,
+each holding only its stage's parameters and its TP shard:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+        --reduced --device cpu --hybrid-mesh 2,2,1,2,1 --microbatches 4 \
+        --steps 3 --batch 16 --seq 32
+
+``--device cuda`` runs one NCCL rank per card (the world may not exceed
+the card count); ``--device cpu`` spawns gloo ranks.  ``train_hybrid_rank``
+is the per-rank path for a caller already inside a world (``chip_smoke.py``).
+Not ported yet, each exits naming its ROADMAP Queue 1 item: CP > 1 (item
+7), EP > 1 or an MoE arch (item 8), ``--elastic``, ``--fault-plan`` and
+``--ckpt-dir`` (item 10).  Tied-embedding archs (mamba2-370m, phi4-mini)
+raise as the pipeline cut does in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import math
 import sys
 
 import torch
@@ -28,16 +42,19 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.data import DataConfig, PrefetchIterator, SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.models import init_params, init_pipeline_params
+from repro_torch.models.convert import to_rank_params
+from repro_torch.models.model import _check_pipelineable
 from repro_torch.optim import make_optimizer
-from repro_torch.train import (LoopConfig, build_train_step,
-                               init_train_state, restart_on_failure)
+from repro_torch.sharding import Policy
+from repro_torch.train import (LoopConfig, build_hybrid_train_step,
+                               build_train_step, init_train_state,
+                               restart_on_failure)
 
 NOT_PORTED = {
-    "hybrid_mesh": "--hybrid-mesh needs the mesh, the pipeline and context "
-                   "parallelism (ROADMAP Queue 1 items 5-7)",
-    "elastic": "--elastic needs the hybrid mesh and checkpoints (ROADMAP "
-               "Queue 1 items 6 and 10)",
+    "elastic": "--elastic needs checkpoints and the mesh-shrinking "
+               "supervisor (ROADMAP Queue 1 item 10)",
     "fault_plan": "--fault-plan needs resilience/inject.py (ROADMAP Queue 1 "
                   "item 10)",
     "ckpt_dir": "--ckpt-dir needs checkpoint/ckpt.py (ROADMAP Queue 1 "
@@ -73,6 +90,114 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
                               max_restarts=max_restarts, logger=logger)
 
 
+def parse_hybrid(spec: str) -> tuple:
+    """``DP,PP,CP,TP,EP`` (or ``DP,PP,CP,TP``, or ``DP,PP,TP``) as a
+    5-tuple."""
+    parts = [int(x) for x in spec.split(",")]
+    if len(parts) == 3:          # DP,PP,TP form
+        parts = parts[:2] + [1] + parts[2:]
+    if len(parts) == 4:          # DP,PP,CP,TP form
+        parts = parts + [1]
+    if len(parts) != 5:
+        raise SystemExit("--hybrid-mesh wants DP,PP,CP,TP,EP "
+                         "(or DP,PP,CP,TP / DP,PP,TP)")
+    return tuple(parts)
+
+
+def check_hybrid(cfg, hybrid):
+    """Refuse what the port's hybrid path lacks, naming its ROADMAP item;
+    a tied-embedding arch raises as the pipeline cut does."""
+    dp, pp, cp, tp, ep = hybrid
+    if cp > 1:
+        raise SystemExit("--hybrid-mesh CP > 1 needs ring attention "
+                         "(ROADMAP Queue 1 item 7, context parallelism)")
+    if ep > 1 or cfg.num_experts:
+        raise SystemExit(f"--hybrid-mesh EP = {ep} / MoE arch {cfg.name}: "
+                         "MoE and expert parallelism are not ported yet "
+                         "(ROADMAP Queue 1 item 8)")
+    _check_pipelineable(cfg)
+
+
+def train_hybrid_rank(cfg, hybrid, *, steps: int, batch: int, seq: int,
+                      microbatches: int = 4, schedule: str = "1f1b",
+                      lr: float = 1e-3, seed: int = 0, device=None,
+                      max_restarts: int = 3,
+                      rollback_after_skips: int | None = None,
+                      logger=print):
+    """The hybrid run on THIS rank of a world already joined (every rank
+    of the factorization ``hybrid`` = (dp, pp, cp, tp, ep) calls it
+    together): the mesh, the policy (explicit TP when tp > 1), the step,
+    and the supervised loop over this rank's state.  Returns ``(state,
+    history, policy)``.  Each rank initialises the global parameters from
+    ``seed`` on the host, keeps only its blocks (``convert.to_rank_params``)
+    and moves them to ``device``, so no card ever holds the whole model;
+    every rank draws the same global batches and cuts its own rows.
+
+    Only a non-finite streak restarts the run (``rollback_after_skips``):
+    its flag is agreed over the mesh, so every rank rolls back at the same
+    step.  Any other fault is raised on the rank that saw it and ends the
+    run (``launch.mesh.spawn`` then stops every rank): a restart of that
+    rank alone would pair its step 0 with its peers' pending step and
+    train the ranks out of step.  Restarting the whole mesh needs ROADMAP
+    Queue 1 item 10."""
+    check_hybrid(cfg, hybrid)
+    device = resolve_device(device)
+    dp, pp, cp, tp, ep = hybrid
+    mesh = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device=device)
+    policy = Policy.for_mesh(mesh, explicit_tp=tp > 1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+    opt = make_optimizer(cfg.optimizer, total_steps=steps, base_lr=lr)
+    cfg = dataclasses.replace(cfg, grad_accum=1)
+    step = build_hybrid_train_step(cfg, policy, opt,
+                                   num_microbatches=microbatches,
+                                   schedule=schedule)
+
+    def make_iter(start):
+        return PrefetchIterator(data, start_step=start)
+
+    def make_state():
+        glob = init_pipeline_params(cfg, torch.Generator().manual_seed(seed),
+                                    pp, "cpu")
+        n = sum(p.numel() for p in glob.values())
+        params = {k: v.to(device)
+                  for k, v in to_rank_params(cfg, policy, glob).items()}
+        del glob
+        mine = sum(p.numel() for p in params.values())
+        logger(f"{cfg.name}: {n/1e6:.1f}M params ({mine/1e6:.1f}M on this "
+               f"rank), mesh={dict(zip(policy.axis_names, mesh.shape))}, "
+               f"device={device}")
+        return init_train_state(cfg, params, opt)
+
+    loop_cfg = LoopConfig(total_steps=steps, log_every=10,
+                          rollback_after_skips=rollback_after_skips)
+    state, hist = restart_on_failure(make_state, step, make_iter, loop_cfg,
+                                     max_restarts=max_restarts,
+                                     recoverable=(), logger=logger)
+    return state, hist, policy
+
+
+def _hybrid_rank_main(rank, world_mesh, *, cfg, hybrid, **kw):
+    """Spawned on every rank by ``train_hybrid``: the history only."""
+    logs = []
+    _, hist, _ = train_hybrid_rank(cfg, hybrid, logger=logs.append, **kw)
+    return {"history": list(hist), "health": hist.health, "log": logs}
+
+
+def train_hybrid(cfg, hybrid, *, device=None, timeout_s: float = 1800.0,
+                 **kw) -> list:
+    """Spawn one process per rank of ``hybrid`` = (dp, pp, cp, tp, ep) on
+    ``device`` (NCCL, one rank per card, for ``cuda``; gloo for ``cpu``)
+    and run ``train_hybrid_rank`` on each; returns each rank's
+    ``{"history", "health", "log"}``."""
+    check_hybrid(cfg, hybrid)
+    device = resolve_device(device)
+    return launch_mesh.spawn(
+        functools.partial(_hybrid_rank_main, cfg=cfg, hybrid=hybrid,
+                          device=device.type, **kw),
+        math.prod(hybrid), device=device.type, timeout_s=timeout_s)
+
+
 def main(argv=None):
     """Parse ``argv``, train, print the final loss and the health counters;
     returns ``(state, history)``."""
@@ -95,7 +220,17 @@ def main(argv=None):
                          "guard-skipped steps, start again and advance the "
                          "data stream past the poisoned window")
     ap.add_argument("--max-restarts", type=int, default=3)
-    for flag in ("--hybrid-mesh", "--fault-plan", "--ckpt-dir"):
+    ap.add_argument("--hybrid-mesh", default=None, metavar="DP,PP,CP,TP,EP",
+                    help="run the hybrid executor on a (data, pipe, ctx, "
+                         "model, ep) mesh with this factorization, one "
+                         "process per rank (a 4-value DP,PP,CP,TP form is "
+                         "accepted with EP=1, a 3-value DP,PP,TP form with "
+                         "CP=EP=1); CP and EP must be 1 (not ported yet)")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="pipeline microbatches per step (hybrid mesh only)")
+    ap.add_argument("--schedule", default="1f1b",
+                    choices=("1f1b", "fill_drain"))
+    for flag in ("--fault-plan", "--ckpt-dir"):
         ap.add_argument(flag, default=None, help="not ported yet")
     ap.add_argument("--elastic", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
@@ -106,14 +241,26 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    state, hist = train(cfg, steps=args.steps, batch=args.batch,
-                        seq=args.seq, lr=args.lr, seed=args.seed,
-                        device=args.device, max_restarts=args.max_restarts,
-                        rollback_after_skips=args.rollback_after_skips)
+    run = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+               seed=args.seed, device=args.device,
+               max_restarts=args.max_restarts,
+               rollback_after_skips=args.rollback_after_skips)
+    if args.hybrid_mesh:
+        hybrid = parse_hybrid(args.hybrid_mesh)
+        ranks = train_hybrid(cfg, hybrid, microbatches=args.microbatches,
+                             schedule=args.schedule, **run)
+        for line in ranks[0]["log"]:
+            print(line)
+        state, hist = None, ranks[0]["history"]
+        health = ranks[0]["health"]
+        where = f"mesh {','.join(map(str, hybrid))}, {len(ranks)} ranks"
+    else:
+        state, hist = train(cfg, **run)
+        health, where = hist.health, "one device"
     health = " ".join(f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
-                      for k, v in hist.health.items())
-    print(f"done: final loss {hist[-1]['loss']!r} over {len(hist)} steps  "
-          f"[{health}]")
+                      for k, v in health.items())
+    print(f"done: final loss {hist[-1]['loss']!r} over {len(hist)} steps "
+          f"({where})  [{health}]")
     return state, hist
 
 

@@ -1,3 +1,12 @@
 from . import attention, blocks, common, convert, lenet, model, ssm  # noqa: F401
 from .convert import params_from_jax  # noqa: F401
-from .model import forward, init_cache, init_params  # noqa: F401
+from .model import (  # noqa: F401
+    forward,
+    from_pipeline_params,
+    init_cache,
+    init_params,
+    init_pipeline_params,
+    pipeline_fns,
+    pipeline_param_parts,
+    to_pipeline_params,
+)

@@ -9,6 +9,8 @@ Given a ``policy`` with ``explicit_tp``, ``sublayer_apply`` runs the
 attention+MLP sublayer in train mode as ONE ``dist_jit`` region over the
 policy's model axis (``_tp_sublayer_apply``): the residual stream enters
 feature-sharded and the four projections ride the ring matmuls.
+``pipeline_stage_body`` is one pipeline stage on local blocks, run by the
+executor of ``core/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -147,6 +149,47 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
         h = rmsnorm(x, p["norm_ffn"])
         x = x + mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type)
     return x, kv
+
+
+def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
+    """One pipeline STAGE on local blocks: its stack of superblocks, run in
+    the pipeline executor's region (``core/pipeline.py``).
+
+    p_stage: this stage's superblocks, each leaf stacked ``(n_super_per_
+    stage, ...)``.  x: the local activation, ``(B_mb, S, d_model/tp)``
+    feature-sharded when ``policy.explicit_tp`` (the fused ring-TP sublayer
+    bodies run inside the region, so TP collectives compose with the pipe
+    axis), else the full-feature ``(B_mb, S, d_model)`` residual through
+    the ordinary ``sublayer_apply`` (kernels and all).  Training math only.
+    MoE FFNs wait for ROADMAP Queue 1 item 8 and a live ctx axis for item
+    7; both raise."""
+    explicit = policy is not None and getattr(policy, "explicit_tp", False)
+    if policy is not None and policy.active_ctx_axis is not None:
+        raise NotImplementedError(
+            "pipeline stages over a live ctx axis (ring attention) are not "
+            "ported yet (ROADMAP Queue 1 item 7, context parallelism)")
+    kinds = [layer_kinds(cfg, i) for i in range(cfg.block_period)]
+    if any(ffn == "moe" for _, ffn in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE pipeline stages are not ported yet (ROADMAP "
+            "Queue 1 item 8, MoE and expert parallelism)")
+    # unbind: each stacked leaf's grad is one stack of per-superblock grads
+    layers = {k: v.unbind(0) for k, v in p_stage.items()}
+    n = len(next(iter(layers.values())))
+    for j in range(n):
+        p_blk = {k: v[j] for k, v in layers.items()}
+        for i, (mixer, ffn) in enumerate(kinds):
+            pp = subtree(p_blk, f"pos{i}")
+            if explicit:
+                if mixer != "attn" or ffn not in ("mlp", "none"):
+                    raise NotImplementedError(
+                        "explicit-TP pipeline stages support attention + "
+                        f"dense-FFN sublayers, got ({mixer}, {ffn})")
+                x = _tp_sublayer_body(pp, x, positions, cfg, policy, ffn)
+            else:
+                x, _ = sublayer_apply(pp, x, cfg, i, positions=positions,
+                                      mode="train")
+    return x
 
 
 def superblock_init(cfg, dtype, generator, stacked: int) -> dict:

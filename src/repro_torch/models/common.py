@@ -15,12 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import primitives as prim
 from repro_torch.kernels import ops
-
-
-def subtree(params: dict, prefix: str) -> dict:
-    """The entries of ``params`` under ``prefix.``, with the prefix removed."""
-    n = len(prefix) + 1
-    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+from repro_torch.tree import subtree  # noqa: F401  (re-exported)
 
 
 def rmsnorm(x, w, eps: float = 1e-6):

@@ -3,7 +3,8 @@
 Dense and SSM (mamba2) architectures so far; MoE and ``embeds`` frontends
 raise ``NotImplementedError`` naming their ROADMAP item.  The superblock
 parameters are stacked on a leading dim, as the reference's scan layout
-(``model.py:32``), and applied by a Python loop.
+(``model.py:32``), and applied by a Python loop.  The pipeline cut
+(``to_pipeline_params`` ... ``pipeline_fns``) feeds ``core/pipeline.py``.
 
 Modes:
   train   — full sequence, returns logits
@@ -17,7 +18,10 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .blocks import check_supported, superblock_apply, superblock_init
+from repro_torch.sharding import Partitioned
+
+from .blocks import (check_supported, pipeline_stage_body, superblock_apply,
+                     superblock_init)
 from .common import dense_init, rmsnorm, subtree
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -48,6 +52,133 @@ def init_params(cfg, generator, device=None, dtype=None) -> dict:
         params["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dtype,
                                        generator)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Pipeline-parallel model cut (``core/pipeline.py`` executor glue).
+#
+# The decoder is cut into S homogeneous stages along the layer axis: each
+# stacked superblock leaf (n_super, ...) is re-stacked to (S, n_super/S,
+# ...) with the leading dim over the pipe mesh axis, the embedding becomes
+# the stage-0 prologue and the final norm + head the last-stage epilogue.
+# Flat keys: ``pre.embed``, ``stage.pos0.attn.wq``, ``post.norm_final``,
+# ``post.lm_head``; weights keep JAX's (d_in, d_out) layout.  No leaf names
+# the data axis: on a hybrid mesh every leaf is replicated across replicas
+# (the paper's broadcast B, whose adjoint is the drain-tail sum-reduce).
+# ---------------------------------------------------------------------------
+
+def _check_pipelineable(cfg):
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            "pipeline cut needs untied embeddings (the tied table would "
+            "live on both the first and last stage)")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            "pipeline cut supports token frontends only")
+
+
+def to_pipeline_params(cfg, params, num_stages: int) -> dict:
+    """Re-cut a dense params dict into ``pre.*``/``stage.*``/``post.*`` for
+    ``num_stages`` pipeline stages (stage leaves stacked (S, n_super/S,
+    ...), views of the dense leaves)."""
+    _check_pipelineable(cfg)
+    n_super = cfg.num_layers // cfg.block_period
+    if num_stages < 1 or n_super % num_stages:
+        raise ValueError(
+            f"{n_super} superblocks do not assign uniformly to "
+            f"{num_stages} stages (the executor needs equal stages)")
+    per = n_super // num_stages
+    out = {"pre.embed": params["embed"]}
+    out.update({f"stage.{k}": v.reshape((num_stages, per) + v.shape[1:])
+                for k, v in subtree(params, "blocks").items()})
+    out["post.norm_final"] = params["norm_final"]
+    out["post.lm_head"] = params["lm_head"]
+    return out
+
+
+def from_pipeline_params(pparams) -> dict:
+    """Inverse of ``to_pipeline_params``: back to the dense layout."""
+    out = {"embed": pparams["pre.embed"]}
+    out.update({f"blocks.{k}": v.reshape((v.shape[0] * v.shape[1],)
+                                         + v.shape[2:])
+                for k, v in subtree(pparams, "stage").items()})
+    out["norm_final"] = pparams["post.norm_final"]
+    out["lm_head"] = pparams["post.lm_head"]
+    return out
+
+
+def init_pipeline_params(cfg, generator, num_stages: int, device=None,
+                         dtype=None) -> dict:
+    """Random parameters directly in the pipeline-stage layout (the
+    GLOBAL tree; ``convert.to_rank_params`` cuts one rank's blocks)."""
+    return to_pipeline_params(cfg, init_params(cfg, generator, device, dtype),
+                              num_stages)
+
+
+def pipeline_param_parts(cfg, policy, pparams) -> dict:
+    """``Partitioned`` declarations for a pipeline params dict.
+
+    Stage leaves lead with the ``pipe`` axis (the stacked stage dim); under
+    ``policy.explicit_tp`` the projection/norm leaves also carry their
+    model-axis TP sharding (the fused TP sublayer's specs).  pre/post
+    leaves stay replicated.  MoE expert leaves are not ported (ROADMAP
+    Queue 1 item 8)."""
+    explicit = policy is not None and getattr(policy, "explicit_tp", False)
+    col = Partitioned("pipe", None, None, "model")
+    row = Partitioned("pipe", None, "model", None)
+    vec = Partitioned("pipe", None, "model")
+    tp_table = {"wq": col, "wk": col, "wv": col, "wo": row,
+                "w_up": col, "w_gate": col, "w_down": row,
+                "norm_mixer": vec, "norm_ffn": vec}
+
+    def part(key):
+        if key.startswith("stage."):
+            name = key.rsplit(".", 1)[-1]
+            return tp_table[name] if explicit and name in tp_table else (
+                Partitioned("pipe"))
+        return Partitioned()
+    return {k: part(k) for k in pparams}
+
+
+def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
+    """(pre_fn, stage_fn, logits_fn) for the pipeline executor.
+
+    pre_fn embeds a token microbatch (and feature-shards the residual under
+    explicit TP: its parameter cotangent is then in contribution form over
+    the model axis, the executor's ``pre_psum_axes``); stage_fn applies
+    this stage's superblocks; logits_fn gathers the features back and
+    applies the final norm and head.  ``aux_weight`` weighs the MoE
+    auxiliary loss, which waits for ROADMAP Queue 1 item 8 (dense configs
+    return the bare activation).  Call the three inside a region
+    (``core/compile.py``)."""
+    from repro_torch.core import layers as L
+    from repro_torch.core import primitives as prim
+
+    _check_pipelineable(cfg)
+    explicit = policy is not None and getattr(policy, "explicit_tp", False)
+    dtype = DTYPES[cfg.dtype]
+
+    def pre_fn(p_pre, mb):
+        x = p_pre["embed"][mb["tokens"]].to(dtype)
+        if explicit:
+            x = L.shard_slice(x, policy.model_axis, x.ndim - 1)
+        return x
+
+    def stage_fn(p_stage, x):
+        B, S_loc = x.shape[:2]
+        positions = torch.arange(S_loc, device=x.device)[None, :].expand(
+            B, S_loc)
+        return pipeline_stage_body(p_stage, x, cfg, policy,
+                                   positions=positions)
+
+    def logits_fn(p_post, y):
+        if explicit:
+            # the epilogue's loss is the same on every model rank, so the
+            # gather's adjoint is the restriction to the rank's own block
+            y = prim.all_gather_replicated(y, policy.model_axis, y.ndim - 1)
+        return rmsnorm(y, p_post["norm_final"]) @ p_post["lm_head"]
+
+    return pre_fn, stage_fn, logits_fn
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:

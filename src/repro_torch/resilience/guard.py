@@ -6,13 +6,17 @@ every optimizer moment stay bitwise as they were, ``skipped_steps``
 increments, and ``step`` still advances (the batch was consumed; the data
 stream is addressed by step).
 
-On one device the decision is taken on the host: the train step reads the
-one-bit flag before the update and runs the update only when it is 0, so a
-skipped step's params and moments are bitwise unchanged because the update
-never ran.  In the reference the flag is the max of every rank's flag, a
-one-bit AllReduce, and the skip a select (``tree_where``) inside the
-compiled step; that all-reduce comes with the first multi-rank train step
-(ROADMAP Queue 1 item 6).  ``tree_where`` and ``combine_flags`` are here for it.
+The decision is taken on the host: the train step reads the one-bit flag
+before the update and runs the update only when it is 0, so a skipped
+step's params and moments are bitwise unchanged because the update never
+ran.  On a mesh (``train/step.py::build_hybrid_train_step``) the flag is
+the max of every rank's flag, agreed by ONE max all-reduce over the whole
+mesh at the end of the pipeline executor's drain (``core/pipeline.py``,
+``primitives.mesh_all_reduce_``): the one-bit all-reduce of the
+reference, and the only all-reduce the guard adds.  Every rank reads the
+same bit, so every rank skips or none does.  ``combine_flags`` takes the
+max over ``virtual_dp`` passes.  Where the reference selects with
+``tree_where`` inside the compiled step, the port does not run the update.
 
 - :func:`nonfinite_count`: count of non-finite values in a tree.
 - :func:`nonfinite_flag`: its one-bit form.

@@ -9,7 +9,10 @@ from .loop import (  # noqa: F401
 )
 from .step import (  # noqa: F401
     batch_to_device,
+    build_hybrid_train_step,
+    build_hybrid_value_and_grad,
     build_loss_fn,
+    build_pipeline_train_step,
     build_train_step,
     cross_entropy,
     init_train_state,

@@ -16,18 +16,29 @@ function:
 
 Gradients come from ``torch.autograd.grad`` through the model's forward in
 train mode, whose kernels (``kernels/ops.py``) recompute their backward
-through their plain versions, as the reference's ``custom_vjp``s do.  The
-hybrid and pipeline builders wait for ROADMAP Queue 1 items 5-6.
+through their plain versions, as the reference's ``custom_vjp``s do.
+
+``build_hybrid_train_step`` (and its dp = 1 face
+``build_pipeline_train_step``) is the sibling over the hybrid DP x pipe x
+TP mesh: loss and grads come from the scheduled executor of
+``core/pipeline.py`` on THIS RANK's blocks (each rank holds only its
+stage's leaves and its TP shard), followed by the same clip and update on
+those blocks.  Its guard flag is agreed by the executor's one-bit
+all-reduce; the host reads it, and every rank takes the same branch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import primitives as prim
+from repro_torch.core.compile import local_blocks, region, resolve_parts
 from repro_torch.models import forward
 from repro_torch.models.model import DTYPES
 from repro_torch.optim.optimizers import global_norm
-from repro_torch.resilience.guard import apply_guard, nonfinite_flag
+from repro_torch.resilience.guard import (apply_guard, combine_flags,
+                                          nonfinite_flag)
+from repro_torch.sharding import Partitioned
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
@@ -138,6 +149,196 @@ def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
         return new_state, metrics
 
     return train_step
+
+
+# Per-replica microbatch restriction: the boundary over the data axis is
+# the BatchScatter operator, the seq dim over the ctx axis its sequence
+# sibling, and ep sub-shards the batch dim alongside data; absent axes
+# resolve to None, so the spec degenerates to replicated.
+MB_PART = Partitioned(None, ("data", "ep"), "ctx")
+
+
+def _hybrid_executor(cfg, policy, *, num_microbatches, schedule, aux_weight,
+                     nonfinite_flag, fault_hook, phase_hook=None):
+    """(args, kwargs, sched, parts) of the executor for ``cfg`` on
+    ``policy``'s mesh; ``parts`` declares the global pipeline params."""
+    from repro_torch.core.pipeline import make_schedule
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.model import (pipeline_fns, pipeline_param_parts,
+                                          to_pipeline_params)
+
+    sched = make_schedule(schedule, num_microbatches, policy.pipe_size)
+    pre_fn, stage_fn, logits_fn = pipeline_fns(cfg, policy, aux_weight)
+
+    def post_fn(p_post, y, labels):
+        loss, _ = cross_entropy(logits_fn(p_post, y), labels)
+        return loss
+
+    pspecs = to_pipeline_params(cfg, param_specs(cfg), policy.pipe_size)
+    parts = pipeline_param_parts(cfg, policy, pspecs)
+    explicit = getattr(policy, "explicit_tp", False)
+    kwargs = dict(pre_psum_axes=(policy.model_axis,) if explicit else (),
+                  nonfinite_flag=nonfinite_flag, grad_fault_hook=fault_hook,
+                  phase_hook=phase_hook)
+    return (pre_fn, stage_fn, post_fn, policy, sched), kwargs, sched, parts
+
+
+def build_hybrid_value_and_grad(cfg, policy, *, num_microbatches: int,
+                                schedule: str = "1f1b",
+                                aux_weight: float = 0.01,
+                                nonfinite_flag: bool = False,
+                                fault_hook=None):
+    """The scheduled executor of ``build_hybrid_train_step``, factored:
+    ``(pvg, sched)`` where ``pvg(params, {"tokens": mbs}, label_mbs) ->
+    (loss, grads)`` over GLOBAL microbatched ``(M, B/M, S)`` inputs and
+    global ``{pre, stage, post}`` params (``dist_jit``'s boundary), so
+    tests can compare raw gradients across meshes."""
+    from repro_torch.core.pipeline import pipeline_value_and_grad
+    args, kwargs, sched, parts = _hybrid_executor(
+        cfg, policy, num_microbatches=num_microbatches, schedule=schedule,
+        aux_weight=aux_weight, nonfinite_flag=nonfinite_flag,
+        fault_hook=fault_hook)
+    pvg = pipeline_value_and_grad(*args, params_parts=parts,
+                                  x_parts={"tokens": MB_PART},
+                                  y_parts=MB_PART, **kwargs)
+    return pvg, sched
+
+
+def _replication(parts, policy) -> dict:
+    """For each leaf, 1 / (the product of the sizes of the mesh axes its
+    spec leaves replicated): weighing each rank's local sum of squares by
+    it and summing over the whole mesh counts every element once."""
+    out = {}
+    for key, spec in resolve_parts(parts, policy).items():
+        named = {a for e in spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        k = 1
+        for a in policy.axis_names:
+            if a not in named:
+                k *= policy.axis_size(a)
+        out[key] = 1.0 / k
+    return out
+
+
+def build_hybrid_train_step(cfg, policy, optimizer, *,
+                            num_microbatches: int, schedule: str = "1f1b",
+                            max_grad_norm: float = 1.0,
+                            aux_weight: float = 0.01,
+                            nonfinite_guard: bool = True, fault_hook=None,
+                            virtual_dp: int = 1, phase_hook=None):
+    """Train step over the hybrid DP x pipe x TP mesh (DESIGN §5), on THIS
+    RANK's state: ``state["params"]`` holds this rank's blocks of the
+    pipeline params (``models.convert.to_rank_params``), and the optimizer
+    moments match them.  Every rank of ``policy.mesh`` calls the step with
+    the same GLOBAL batch; each cuts its own rows.
+
+    The global batch is cut into ``num_microbatches`` microbatches, each
+    restricted to this replica's rows (the ``BatchScatter`` operator over
+    the data axis), and the executor of ``core/pipeline.py`` runs the
+    schedule with the TP rings live inside stage bodies and the
+    cross-replica gradient sum (the parameter broadcast's Eq. 9 adjoint) at
+    the tail of the drain.  Then the global-norm clip, counting each
+    replicated element once (:func:`_replication`, one all-reduce over the
+    mesh), and the optimizer update of this rank's blocks in place.
+    Metrics carry the schedule's static ``bubble_fraction``.
+
+    ``nonfinite_guard`` (default on): the executor returns the one-bit
+    non-finite flag agreed over the whole mesh by ONE max all-reduce, the
+    only all-reduce the guard adds; on flag 1 no rank runs the update, so
+    params and moments stay bitwise unchanged, ``skipped_steps``
+    increments and ``step`` advances.  ``fault_hook(grads) -> grads`` is
+    applied to the reduced gradients before the flag (the fault-injection
+    point).  Raises ``ValueError`` when the batch does not divide by
+    microbatches x dp x virtual_dp x ep or the sequence by cp.
+
+    ``virtual_dp`` (DESIGN §10) folds lost data parallelism into gradient
+    accumulation: the executor runs ``virtual_dp`` times, pass ``v`` on the
+    contiguous row block ``v`` of every microbatch, and ``loss``, ``grads``
+    are the passes' means and the flag their max.  ``phase_hook(kind)`` is
+    the executor's instrumentation point, also called with
+    ``"optimizer"`` before the clip and update.
+    """
+    from repro_torch.core.pipeline import pipeline_value_and_grad_local
+    args, kwargs, sched, parts = _hybrid_executor(
+        cfg, policy, num_microbatches=num_microbatches, schedule=schedule,
+        aux_weight=aux_weight, nonfinite_flag=nonfinite_guard,
+        fault_hook=fault_hook, phase_hook=phase_hook)
+    run = pipeline_value_and_grad_local(*args, **kwargs)
+    bubble = sched.bubble_fraction()
+    dp, cp, ep = policy.dp_size, policy.ctx_size, policy.ep_size
+    vdp = max(int(virtual_dp), 1)
+    weights = _replication(parts, policy)
+    M = num_microbatches
+
+    def train_step(state, batch):
+        params = state["params"]
+        device = next(iter(params.values())).device
+        batch = batch_to_device(batch, device)
+        if batch["tokens"].shape[0] % (M * dp * vdp * ep):
+            raise ValueError(
+                f"global batch {batch['tokens'].shape[0]} not divisible by "
+                f"num_microbatches x dp x virtual_dp x ep = "
+                f"{M} x {dp} x {vdp} x {ep}")
+        if batch["tokens"].shape[-1] % cp:
+            raise ValueError(
+                f"sequence length {batch['tokens'].shape[-1]} not divisible "
+                f"by cp={cp} — a clamped shard would silently drop the "
+                f"trailing positions")
+        mbs = {k: x.reshape((M, x.shape[0] // M) + x.shape[1:])
+               for k, x in batch.items()}
+        rows = mbs["tokens"].shape[1] // vdp
+        outs = []
+        for v in range(vdp):
+            block = {k: x[:, v * rows:(v + 1) * rows] for k, x in mbs.items()}
+            mine = local_blocks(MB_PART, block, policy)
+            with region(policy):
+                outs.append(run(params, {"tokens": mine["tokens"]},
+                                mine["labels"]))
+        if vdp == 1:
+            loss, grads = outs[0][0], outs[0][1]
+        else:
+            loss = sum(o[0] for o in outs) / vdp
+            grads = {k: sum(o[1][k] for o in outs) / vdp for k in params}
+        if phase_hook is not None:
+            phase_hook("optimizer")
+        with prim.use_mesh(policy.mesh):
+            sq = sum(torch.sum(torch.square(g.float())) * weights[k]
+                     for k, g in grads.items())
+            gnorm = torch.sqrt(prim.mesh_all_reduce_(sq))
+        scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "bubble_fraction": bubble}
+        if nonfinite_guard:
+            # agreed over the mesh by the executor: the same on every rank
+            flag = int(combine_flags(*(o[2] for o in outs)))
+            new_params, new_opt = params, state["opt"]
+            if not flag:
+                new_params, new_opt = optimizer.update(
+                    grads, state["opt"], params, scale=scale)
+            new_state = apply_guard(flag, state, new_params, new_opt)
+            metrics["skipped"] = flag
+        else:
+            new_params, new_opt = optimizer.update(grads, state["opt"],
+                                                   params, scale=scale)
+            new_state = {"params": new_params, "opt": new_opt,
+                         "step": state["step"] + 1}
+        return new_state, metrics
+
+    return train_step
+
+
+def build_pipeline_train_step(cfg, policy, optimizer, *,
+                              num_microbatches: int, schedule: str = "1f1b",
+                              max_grad_norm: float = 1.0,
+                              nonfinite_guard: bool = True, fault_hook=None):
+    """Train step over a pipeline-parallel (pipe, model) mesh: the dp = 1
+    face of ``build_hybrid_train_step`` (the data axis is absent, so the
+    per-replica restriction and the cross-replica sums are no-ops)."""
+    return build_hybrid_train_step(
+        cfg, policy, optimizer, num_microbatches=num_microbatches,
+        schedule=schedule, max_grad_norm=max_grad_norm,
+        nonfinite_guard=nonfinite_guard, fault_hook=fault_hook)
 
 
 def init_train_state(cfg, params, optimizer):

@@ -1,8 +1,9 @@
 """Nested containers of tensors, the port's stand-in for JAX pytrees.
 
 Parameters, gradients and optimizer moments are flat ``{name: Tensor}``
-dicts; the optimizer and train states nest them in dicts, and a few call
-sites pass tuples.  Leaves come in the order ``jax.tree_util`` gives:
+dicts whose names are key paths joined by dots (``subtree`` takes the part
+under a prefix); the optimizer and train states nest them in dicts, and a
+few call sites pass tuples.  Leaves come in the order ``jax.tree_util`` gives:
 dict keys sorted, sequences in order.
 """
 
@@ -30,3 +31,9 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The entries of ``params`` under ``prefix.``, with the prefix removed."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}

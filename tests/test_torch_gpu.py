@@ -13,8 +13,9 @@ the tensor-core kernels, fp32 ones the CUDA-core kernels
 (``ops.ROUTE_LAUNCHES``).  Gradients through each kernel's autograd
 Function (the kernel's forward, a backward recomputed through the plain
 version) must equal the plain function's own autograd within the same pins,
-and two train steps of a small model on the card must track the host.  The
-paper's primitives, LinearOps and memory operators pass Eq. 13 on CUDA
+and two train steps of a small model on the card must track the host, by
+the single-device step and by the hybrid pipeline step at mesh (1, 1, 1).
+The paper's primitives, LinearOps and memory operators pass Eq. 13 on CUDA
 tensors over NCCL, one rank per card (``launch/dist_check.py`` at its small
 shapes); the two-card case skips on a one-card machine, and the
 three-card non-cyclic shift by 2 (a rank with neither source nor
@@ -36,7 +37,9 @@ from repro_torch.core import primitives as prim
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import dist_check, mesh
-from repro_torch.models import init_params
+from repro_torch.launch import train as launch_train
+from repro_torch.models import (from_pipeline_params, init_params,
+                                init_pipeline_params)
 from repro_torch.optim import make_optimizer
 from repro_torch.train import build_train_step, init_train_state
 from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -431,6 +434,59 @@ def test_send_recv_offset_two_across_three_cards(cards):
     ranks = mesh.spawn(_shift_offset_two, 3, device="cuda", timeout_s=120)
     assert [float(r["y"][0]) for r in ranks] == [0.0, 0.0, 1.0]
     assert [float(r["g"][0]) for r in ranks] == [30.0, 0.0, 0.0]
+
+
+def _hybrid_on_card(rank, world_mesh, *, cfg, steps, batch, seq, micro):
+    """Two hybrid AdamW steps at mesh (1, 1, 1) through the CLI's per-rank
+    path, with the launch counts around them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launches()
+    state, hist, _ = launch_train.train_hybrid_rank(
+        cfg, (1, 1, 1, 1, 1), steps=steps, batch=batch, seq=seq,
+        microbatches=micro, lr=1e-3, seed=0, device="cuda",
+        logger=lambda *a: None)
+    return {"losses": [r["loss"] for r in hist],
+            "skipped": [r["skipped"] for r in hist],
+            "launches": dict(ops.LAUNCHES), "params": state["params"]}
+
+
+def test_hybrid_step_card_vs_host(cards):
+    """The hybrid executor on one NCCL rank (mesh (1, 1, 1), 2
+    microbatches) against the single-device step on the host from the same
+    params and batches: two AdamW steps of reduced glm4-9b in fp32, losses
+    within 1e-4 and params within 1e-3 (the card-vs-host pins above); M x
+    L flash and M x (2L + 1) norm launches a step (the last stage skips
+    its F ticks, so every launch is on a B tick)."""
+    cfg = dataclasses.replace(reduced(get_config("glm4-9b")), grad_accum=1)
+    run = dict(steps=2, batch=4, seq=72, micro=2)
+    got = mesh.spawn(functools.partial(_hybrid_on_card, cfg=cfg, **run), 1,
+                     device="cuda", timeout_s=300)[0]
+    L, M = cfg.num_layers, run["micro"]
+    assert got["launches"] == {"flash_attention": 2 * M * L,
+                               "rmsnorm": 2 * M * (2 * L + 1),
+                               "ssd_scan": 0}
+    assert got["skipped"] == [0, 0]
+    # the per-rank path draws the global tree on the host (seed 0)
+    params = from_pipeline_params(init_pipeline_params(
+        cfg, torch.Generator().manual_seed(0), 1, "cpu"))
+    opt = make_optimizer(cfg.optimizer, total_steps=run["steps"],
+                         base_lr=1e-3)
+    state = init_train_state(cfg, params, opt)
+    step = build_train_step(cfg, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=run["seq"],
+                                  global_batch=run["batch"], seed=0))
+    losses = []
+    for i in range(run["steps"]):
+        state, met = step(state, data.batch(i))
+        losses.append(float(met["loss"]))
+    torch.testing.assert_close(torch.tensor(got["losses"]),
+                               torch.tensor(losses), atol=1e-4, rtol=1e-4)
+    card = from_pipeline_params({k: torch.from_numpy(v)
+                                 for k, v in got["params"].items()})
+    for name, p in state["params"].items():
+        torch.testing.assert_close(card[name], p, atol=1e-3, rtol=1e-3,
+                                   msg=name)
 
 
 def test_cuda_mesh_refuses_more_ranks_than_cards(cards):

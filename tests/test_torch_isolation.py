@@ -25,7 +25,9 @@ import chip_smoke
 import lenet5_distributed_torch, quickstart_torch
 for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
              "repro_torch.core.overlap", "repro_torch.core.layers",
-             "repro_torch.models.lenet"):
+             "repro_torch.models.lenet", "repro_torch.core.pipeline",
+             "repro_torch.launch.specs", "repro_torch.analysis",
+             "repro_torch.analysis.spaces"):
     assert name in names, name
 assert len(names) > 20, names
 bad = sorted(m for m in sys.modules

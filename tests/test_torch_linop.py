@@ -4,8 +4,9 @@ JAX package's, on 8 gloo ranks.
 Mirrors tests/md/test_linop.py (every concrete op and its adjoint, the
 composites, the reversal law, the cross-axis repartition, the random
 chains, the App. B unbalanced halo) and tests/md/test_adjoint_property.py
-(random space-typed chains over 1-D to 5-D meshes, drawn with the
-reference's own move registry ``repro.analysis.spaces``, and the DP pair).
+(random space-typed chains over 1-D to 5-D meshes, drawn with the port's
+own move registry ``repro_torch.analysis.spaces``, which offers the same
+moves as the reference's ``repro.analysis.spaces``, and the DP pair).
 One pool of 8 gloo ranks runs the port's side while a child interpreter
 with 8 host devices runs the JAX side on the same numpy draws.
 
@@ -87,10 +88,11 @@ def _rank_fn(chains, rank, mesh1d):
 
 def _fuzz_chains(n: int, seed: int = 0) -> list:
     """Space-typed random chains drawn as the reference's fuzzer draws them
-    (tests/md/test_adjoint_property.py:_draw_chain), from its move registry
-    ``repro.analysis.spaces``, each checked by its ``typecheck``."""
-    from repro.analysis import spaces
-    from repro.core.linop import Space
+    (tests/md/test_adjoint_property.py:_draw_chain), from the port's move
+    registry ``repro_torch.analysis.spaces``, each checked by its
+    ``typecheck``."""
+    from repro_torch.analysis import spaces
+    from repro_torch.core.linop import Space
     rng = random.Random(seed)
     chains = []
     for _ in range(n):
@@ -281,20 +283,21 @@ def _verdict(L, build, sizes, space):
 
 def test_space_typing_matches_reference():
     """The port's space signatures accept the reference's exported
-    composites with the same codomains and reject its ill-typed ones
-    (``repro/analysis/spaces.py:main``); the pipeline boundary waits for
-    the port of core/pipeline.py."""
+    composites, the pipeline boundary included, with the same codomains
+    and reject its ill-typed ones (``repro/analysis/spaces.py:main``)."""
+    from types import SimpleNamespace
+
     from repro.analysis import spaces
     from repro.core import linop as jlinop
+    from repro_torch.core.pipeline import StageBoundary
+    ops = SimpleNamespace(**vars(linop), StageBoundary=StageBoundary)
     sz = {"model": 8, "data": 8, "ctx": 4, "pipe": 4, "ep": 2}
     for name, op, sizes, space in spaces.exported_composites():
-        if name == "pipe_boundary":
-            continue
         trace = spaces.typecheck(op, sizes, space)
         desc = C.describe(op)
 
         def build(L, desc=desc):
-            return C.build(L, desc)
+            return C.build(ops, desc)
 
         def sp(L, s=space):
             return L.Space(s.kind, s.local_shape, s.axis, s.dim)
@@ -325,3 +328,39 @@ def test_space_typing_matches_reference():
         assert _verdict(linop, build, sz, space) == want
     with pytest.raises(SpaceTypeError):
         linop.Compose(())
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_move_registry_matches_reference(k):
+    """The port's registry (``repro_torch.analysis.spaces``) offers the same
+    moves, in the same order, as the reference's, over random start states
+    and along random walks, and maps each to the same codomain; so the
+    fuzzer's draws are the reference's."""
+    from repro.analysis import spaces as jspaces
+    from repro.core.linop import Space as JSpace
+    from repro_torch.analysis import spaces
+
+    def as_j(sp):
+        return JSpace(sp.kind, sp.local_shape, sp.axis, sp.dim)
+
+    rng = random.Random(k)
+    for _ in range(150):
+        rank = rng.randint(2, 3)
+        if rng.randint(0, 1):
+            space = linop.Space.stacked("tp", rng.randrange(rank),
+                                        [rng.randint(1, 4)
+                                         for _ in range(rank)])
+        else:
+            space = linop.Space.replicated([k * rng.randint(1, 2)
+                                            for _ in range(rank)])
+        for _ in range(rng.randint(1, 5)):
+            got = spaces.legal_moves("tp", k, space, max_dim=MAX_DIM)
+            assert got == jspaces.legal_moves("tp", k, as_j(space),
+                                              max_dim=MAX_DIM), space
+            if not got:
+                break
+            mv = rng.choice(got)
+            _, new = spaces.apply_move("tp", k, space, mv)
+            _, jnew = jspaces.apply_move("tp", k, as_j(space), mv)
+            assert as_j(new) == jnew, (space, mv)
+            space = new

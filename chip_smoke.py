@@ -3,8 +3,9 @@ card and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Two paths are served, glm4-9b (dense attention) and mamba2-370m (SSM), and
-glm4-9b is trained.
+Three paths are served, glm4-9b (dense attention), mamba2-370m (SSM) and
+jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), and glm4-9b is
+trained.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -99,6 +100,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    poisoned through the executor's ``grad_fault_hook`` on the last rank
    only: skipped on every rank, params and moments bitwise unchanged.
    One line ``{"hybrid": {...}}``.
+12. moe: MoE and expert parallelism, jamba-v0.1-52b at its published
+   widths.  (a) Each kernel against its plain version at jamba's shapes:
+   the bf16 SSD scan (B 4, S 1024, H 128, P 64, N 16, chunk 64), RMSNorm
+   at 4096 and 8192 (the gated norm over d_inner), bf16 flash attention
+   with GQA group 4 (32 over 8 heads); their times at those shapes.  (b)
+   The MoE FFN at full width (E 16, top-2, d 4096, h 14336, 2.82B
+   parameters), fp32, T 512, card vs host: y and every grad within
+   PARITY_TOL of scale, aux within 1e-5 relative, the top-k choices and
+   the kept slots equal.  (c) The served model (depth cut 32 -> 8, one
+   period), bf16, each sublayer on the card against the host's fp32
+   sublayer on the same input (B 1, prompt 64): within BF16_PARITY_TOL of
+   scale; the host holds one sublayer's weights at a time (``free -g``
+   printed first).  (d) That model served through ``ServeEngine``, B 4,
+   prompt 1024, 32 greedy steps, launch counts set to 0 just before and
+   read just after: flash 1 and SSD 7 (tensor cores), RMSNorm 792; the
+   rates, peak memory and a decode step's busy share.  (f) The MoE FFN
+   sub-layer at full width, bf16, B 2, S 1024, forward and forward +
+   backward by CUDA events.  (e) The MoE train path at small widths,
+   fp32: reduced kimi and llama4 card vs host (loss and every grad at
+   1e-4), reduced jamba's loss and each sublayer's vjp; the hybrid step
+   on tests/md/test_moe_md.py's ep-grads config (at head dim 16, which
+   the flash kernels take) over NCCL at mesh (1, 1,
+   1, 1, 1) against the single-device step at that file's pins, and at
+   (1, 1, 1, 1, 4) and (1, 1, 1, 2, 2) where 4 cards exist (which also
+   time (f) at ep 4); on one card those say they skip and why.  One line
+   ``{"moe": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -130,7 +157,8 @@ import lenet5_distributed_torch as lenet_example  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
+                                 reduced)
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
@@ -138,9 +166,13 @@ from repro_torch.launch import dist_check, serve  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import (from_pipeline_params,  # noqa: E402
-                                init_params, init_pipeline_params)
+                                init_params, init_pipeline_params, moe)
+from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
+from repro_torch.models.common import (mlp_apply, rmsnorm,  # noqa: E402
+                                       subtree)
+from repro_torch.models.ssm import ssm_block  # noqa: E402
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -206,6 +238,32 @@ HYBRID = {"micro": 4, "parity_layers": 2, "batch": 4, "seq": 1024}
 # (dp, pp, cp, tp, ep) by card count: one NCCL rank per card, as phase 10
 HYBRID_MESHES = {1: (1, 1, 1, 1, 1), 4: (1, 2, 1, 2, 1)}
 HYBRID_LOSS_RTOL, HYBRID_GRAD_TOL = 2e-5, 5e-4
+# the moe phase: jamba-v0.1-52b at its published widths, depth cut from 32
+# to one 8-layer period; flash 1 (the attention layer's prefill), SSD 7
+# (the SSM layers' prefill) and RMSNorm 24 a forward x 33 forwards
+JAMBA, KIMI = "jamba-v0.1-52b", "kimi-k2-1t-a32b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+MOE = {"layers": 8, "batch": 4, "prompt_len": 1024, "steps": 32,
+       "parity_prompt": 64, "ffn_tokens": 512, "time_batch": 2,
+       "time_seq": 1024, "time_iters": 5,
+       "launches": {"flash_attention": 1, "rmsnorm": 792, "ssd_scan": 7}}
+MOE_NORM_CASES = [(4, 4096), (4096, 4096),   # jamba's norms: decode, prefill
+                  (4, 8192), (4096, 8192)]   # its gated norm over d_inner
+MOE_AUX_RTOL = 1e-5
+MOE_TRAIN_TOL = 1e-4   # tests/test_torch_train.py's pin
+# tests/md/test_moe_md.py:125-150: the ep-grads config and its pins, at 4
+# query heads over 2 of 16 (its 8 over 4 of 8 at the same width and GQA
+# group: the flash kernels take head dims 16, 32, 64 and 128)
+MOE_HYBRID_CFG = dict(name="ep-grads", family="moe", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                      d_ff=128, vocab_size=256, dtype="float32", remat=False,
+                      attn_chunk=16, num_experts=4, experts_per_token=2,
+                      moe_d_ff=96, moe_layer_period=2, moe_offset=1,
+                      num_shared_experts=1, capacity_factor=4.0)
+MOE_HYBRID_LOSS_RTOL, MOE_HYBRID_ATOL, MOE_HYBRID_RTOL = 1e-5, 1e-5, 2e-4
+# (dp, pp, cp, tp, ep); the last two need 4 cards (NVLink all-to-all)
+MOE_MESHES = {"single": (1, 1, 1, 1, 1), "ep4": (1, 1, 1, 1, 4),
+              "ep2_tp2": (1, 1, 1, 2, 2)}
 
 
 def expect_routes(name, dtype, before):
@@ -703,6 +761,15 @@ def phase_decode_share(arch, smi):
                          batch_size=B)
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
+    emit(phase="decode_share", arch=arch, **decode_busy(engine, prompt),
+         nvidia_smi=smi)
+
+
+def decode_busy(engine, prompt):
+    """One decode step after ``prompt``'s prefill, run eagerly (host
+    clock, synchronised) and replayed from a CUDA graph (device time
+    only), and the device's busy share of the eager step."""
+    B, S = prompt.shape
     _, cache = engine.prefill(prompt)
     tok = prompt[:, -1:]
 
@@ -718,9 +785,9 @@ def phase_decode_share(arch, smi):
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / iters
     device_ms = cuda_ms(step, iters=iters)
-    emit(phase="decode_share", arch=arch, batch=B, cache_len=S,
-         eager_step_ms=eager_ms, device_step_ms=device_ms,
-         device_busy_share=device_ms / eager_ms, nvidia_smi=smi)
+    return {"batch": B, "cache_len": S, "eager_step_ms": eager_ms,
+            "device_step_ms": device_ms,
+            "device_busy_share": device_ms / eager_ms}
 
 
 def event_ms(fn, iters):
@@ -1008,8 +1075,8 @@ def region_tp_rank(rank, world_mesh, *, shape):
 
         def run(pol):
             p = {k: v.detach().requires_grad_() for k, v in params.items()}
-            y, _ = sublayer_apply(p, x, cfg, 0, positions=pos, mode="train",
-                                  policy=pol)
+            y, _, _ = sublayer_apply(p, x, cfg, 0, positions=pos,
+                                     mode="train", policy=pol)
             grads = torch.autograd.grad(y, list(p.values()), cot)
             return y.detach(), dict(zip(p, grads))
 
@@ -1353,6 +1420,523 @@ def phase_hybrid(smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: MoE and expert parallelism, jamba-v0.1-52b.
+# ---------------------------------------------------------------------------
+
+def jamba_cfg(dtype="bfloat16"):
+    """jamba-v0.1-52b at its published widths, depth cut from 32 layers to
+    one 8-layer period (attention at 4, MoE on the odd layers)."""
+    return dataclasses.replace(get_config(JAMBA),
+                               num_layers=MOE["layers"], dtype=dtype)
+
+
+def layer_params(params, i):
+    """Layer ``i``'s leaves of a one-superblock model, as views."""
+    pre = f"blocks.pos{i}."
+    return {k[len(pre):]: v[0] for k, v in params.items()
+            if k.startswith(pre)}
+
+
+def moe_kernel_checks():
+    """(a): each kernel against its plain version at the shapes jamba gives
+    it, and the jamba-shape timing rows (emitted, not in the kernels'
+    line): the SSD scan bf16 (B 4, S 1024, H 128, P 64, N 16, chunk 64);
+    RMSNorm at 4096 and at 8192 (the gated norm over d_inner); flash
+    attention bf16 with GQA group 4 (32 over 8 heads, hd 128, causal)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    _, (_, flops_bf16, _) = peaks(torch.cuda.get_device_name(0))
+    B, S, H, P, N, L = 4, 1024, 128, 64, 16, 64
+    args = ssd_inputs(B, S, H, P, N, bf16, gen, model=True)
+    before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
+    y, h = ops.ssd_scan(*args, chunk=L)
+    expect_routes("ssd_scan", bf16, before)
+    case = f"moe ssd tc {JAMBA} B={B} S={S} H={H} P={P} N={N} L={L}"
+    err = 0.0
+    for plain, (want_y, want_h) in (
+            ("ssd_ref", ref.ssd_ref(*args)),
+            ("ssd_chunked", ref.ssd_chunked(*args, chunk=L))):
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"{case} y vs {plain}", y, want_y,
+                                   SSD_TOL[bf16]),
+                  check_close(f"{case} h_final vs {plain}", h, want_h,
+                              SSD_TOL[torch.float32]))
+    nc = -(-S // L)
+    timing_row(
+        "ssd_scan", "cuda", bf16, "tensor (mma.sync)",
+        "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+        "src/repro/kernels/ssd_scan.py:60", "kernels/ssd_scan.py::ssd_scan_fwd",
+        f"{JAMBA}: x ({B},{S},{H},{P}) B/C ({B},{S},{N}) bf16, chunk {L}",
+        err, lambda: ops.ssd_scan(*args, chunk=L),
+        lambda: ref.ssd_chunked(*args, chunk=L), None,
+        (2 * 2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * N
+         + 4 * B * H * P * N),
+        B * nc * 2 * L * L * N + B * H * nc * (2 * L * L * P + 4 * L * N * P),
+        flops_bf16, iters=10)
+    for rows, d in MOE_NORM_CASES:
+        for dtype in (torch.float32, bf16):
+            x = randn((rows, d), dtype, gen)
+            w = 1.0 + 0.1 * randn((d,), torch.float32, gen)
+            check_close(f"moe rmsnorm {JAMBA} rows={rows} d={d} {dtype}",
+                        ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                        NORM_TOL[dtype])
+    x = randn((B * S, 8192), bf16, gen)
+    w = 1.0 + 0.1 * randn((8192,), torch.float32, gen)
+    timing_row(
+        "rmsnorm", "triton", bf16, "CUDA cores",
+        "src/repro_torch/kernels/rmsnorm.py", "src/repro/kernels/rmsnorm.py:24",
+        "kernels/rmsnorm.py::rmsnorm_fwd",
+        f"{JAMBA} gated norm: x ({B * S},8192) bf16, w (8192,) fp32",
+        check_close("moe rmsnorm d=8192 timing shape", ops.rmsnorm(x, w),
+                    ref.rmsnorm_ref(x, w), NORM_TOL[bf16]),
+        lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+        lambda: F.rms_norm(x, (8192,), w.to(bf16), 1e-6),
+        2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel(), flops_bf16,
+        iters=100)
+    Hq, KH, hd = 32, 8, 128
+    q, k, v = (randn((B, S, n, hd), bf16, gen) for n in (Hq, KH, KH))
+    before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+    got = ops.flash_attention(q, k, v, causal=True)
+    expect_routes("flash_attention", bf16, before)
+    err = check_close(f"moe flash tc {JAMBA} B={B} S={S} H={Hq} KH={KH} "
+                      f"hd={hd} causal", got,
+                      ref.attention_ref(q, k, v, causal=True),
+                      FLASH_TOL[bf16])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timing_row(
+        "flash_attention", "cuda", bf16, "tensor (wgmma)",
+        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "src/repro/kernels/flash_attention.py:69",
+        "kernels/flash_attention.py::flash_attention_fwd",
+        f"{JAMBA}: q ({B},{S},{Hq},{hd}) k/v ({B},{S},{KH},{hd}) bf16 causal",
+        err, lambda: ops.flash_attention(q, k, v),
+        lambda: ref.attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        2 * (2 * q.numel() + k.numel() + v.numel()),
+        4 * B * Hq * hd * (S * (S + 1) // 2), flops_bf16)
+
+
+def routing(x, router, cfg):
+    """The top-k choices and the kept mask of ``moe._dispatch_combine_local``
+    for tokens x (T, d), with the router probabilities."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    _, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    T, k, E = x.shape[0], cfg.experts_per_token, cfg.num_experts
+    cap = int(math.ceil(T * k / E * cfg.capacity_factor))
+    order, _, keep, _, _ = moe.dispatch_plan(idx, E, cap)
+    kept = torch.zeros(T * k, dtype=torch.bool, device=x.device)
+    kept[order] = keep
+    return probs, idx, kept.reshape(T, k)
+
+
+def moe_ffn_parity(smi):
+    """(b): the MoE FFN at jamba's full width (E 16, top-2, d 4096, h 14336,
+    one layer, 2.82B parameters), fp32, T = 512 tokens, card vs host: y
+    within PARITY_TOL of its scale, aux within 1e-5 relative, the top-k
+    choices and the kept slot sets equal (a flip is reported with its
+    router-probability gap), the grads of ``sum(y * c) + aux`` for x, the
+    router and the three expert weights within PARITY_TOL of each leaf's
+    scale."""
+    cfg = jamba_cfg("float32")
+    T = MOE["ffn_tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    p = moe.moe_init(cfg, torch.float32, gen)
+    x = randn((1, T, cfg.d_model), torch.float32, gen)
+    cot = randn((1, T, cfg.d_model), torch.float32, gen)
+
+    def run(pp, xx, cc):
+        leaves = {k: v.detach().requires_grad_() for k, v in pp.items()}
+        xx = xx.detach().requires_grad_()
+        y, aux = moe.moe_apply(xx, leaves, cfg, None)
+        grads = torch.autograd.grad((y * cc).sum() + aux,
+                                    [xx] + list(leaves.values()))
+        return y.detach(), aux.detach(), dict(zip(["x"] + list(leaves),
+                                                  grads))
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    y_g, aux_g, g_g = run(p, x, cot)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = dict(ops.LAUNCHES)
+    route_g = routing(x[0], p["router"], cfg)
+    host = {k: v.cpu() for k, v in p.items()}
+    del p
+    t0 = time.perf_counter()
+    y_c, aux_c, g_c = run(host, x.cpu(), cot.cpu())
+    host_s = time.perf_counter() - t0
+    probs_c, idx_c, kept_c = routing(x[0].cpu(), host["router"], cfg)
+    flips = (route_g[1].cpu() != idx_c).any(-1).nonzero()[:, 0].tolist()
+    top = torch.topk(probs_c, cfg.experts_per_token + 1, dim=-1).values
+    gaps = (top[:, -2] - top[:, -1])[flips].tolist()
+    kept_equal = bool(torch.equal(route_g[2].cpu(), kept_c))
+    out = {"tokens": T, "params": sum(v.numel() for v in host.values()),
+           "topk_flips": flips, "flip_prob_gaps": gaps,
+           "min_topk_prob_gap": float((top[:, -2] - top[:, -1]).min()),
+           "kept_equal": kept_equal, "dropped": int((~kept_c).sum()),
+           "card_s": card_s, "host_s": host_s, "launches": launched,
+           "aux": [float(aux_g), float(aux_c)]}
+    out["y_share"] = check_scaled(f"moe ffn {JAMBA} y", y_g.cpu(), y_c,
+                                  PARITY_TOL)
+    aux_rel = abs(float(aux_g) - float(aux_c)) / abs(float(aux_c))
+    emit(phase="check", case=f"moe ffn {JAMBA} aux", rel_err=aux_rel,
+         tol=MOE_AUX_RTOL)
+    out["grad_shares"] = {k: check_scaled(f"moe ffn {JAMBA} grad {k}",
+                                          g.cpu(), g_c[k], PARITY_TOL)
+                          for k, g in g_g.items()}
+    emit(phase="moe_ffn", arch=JAMBA, **out, nvidia_smi=smi)
+    if flips or not kept_equal or aux_rel > MOE_AUX_RTOL:
+        raise AssertionError(f"moe ffn: top-k flips {flips} (gaps {gaps}), "
+                             f"kept sets equal {kept_equal}, aux rel "
+                             f"{aux_rel}")
+    if any(launched.values()):
+        raise AssertionError(f"moe ffn: kernels launched {launched}")
+
+
+def sublayer_halves(p, x, cfg, i, pos, h_ffn=None):
+    """Sublayer ``i`` of ``models/blocks.py::sublayer_apply`` in prefill, cut
+    in two: the mixer half ``x1 = x + mixer(norm(x))`` with its cache
+    entries, and the FFN half ``y = ffn(h)`` on ``h_ffn`` (default
+    ``norm(x1)``, the sublayer's own).  Returns (x1, kv, h, y, aux)."""
+    h = rmsnorm(x, p["norm_mixer"])
+    if cfg.mixer_kind(i) == "attn":
+        out, kv = attention_block(subtree(p, "attn"), h, cfg, positions=pos,
+                                  mode="prefill")
+    else:
+        out, kv = ssm_block(subtree(p, "ssm"), h, cfg, mode="prefill")
+    x1 = x + out
+    h = rmsnorm(x1, p["norm_ffn"]) if h_ffn is None else h_ffn
+    if cfg.ffn_kind(i) == "moe":
+        y, aux = moe.moe_apply(h, subtree(p, "moe"), cfg)
+    else:
+        y, aux = mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type), None
+    return x1, kv, h, y, aux
+
+
+def moe_layer_parity(cfg, params, smi):
+    """(c): each of the 8 sublayers of the served bf16 model on the card
+    against the host's fp32 sublayer on the same input (the card's output
+    of the layer before), in prefill, B 1, prompt 64.  A top-k choice is
+    discrete, and the card's bf16 mixer moves the router's input by ~2^-9,
+    which flips near-tied choices and moves a token's FFN output by its
+    scale; so each half is held on the same input: the mixer half (the
+    residual after it and the cache entries) on the sublayer's input, the
+    FFN half (output and aux) on the card's normed FFN input, whose router
+    logits are then fp32 products of the same values on both sides.  Each
+    within BF16_PARITY_TOL of its scale; an MoE half's top-k choices and
+    kept slots equal; the halves together are ``sublayer_apply`` (within
+    PARITY_TOL).  The flips the whole sublayer would see are counted.  The
+    host holds one sublayer's weights at a time."""
+    B, S = 1, MOE["parity_prompt"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
+    host_cfg = dataclasses.replace(cfg, dtype="float32")
+    x = params["embed"][tokens].to(torch.bfloat16)
+    out = {}
+    for i in range(cfg.block_period):
+        p = layer_params(params, i)
+        name = (f"moe parity bf16 {JAMBA} layer {i} "
+                f"({cfg.mixer_kind(i)}+{cfg.ffn_kind(i)})")
+        with torch.no_grad():
+            x2 = sublayer_apply(p, x, cfg, i, positions=pos,
+                                mode="prefill")[0]
+            x1, kv, h, y, aux = sublayer_halves(p, x, cfg, i, pos)
+            hp = {k: v.float().cpu() for k, v in p.items()}
+            x1_c, kv_c, h_c, y_c, aux_c = sublayer_halves(
+                hp, x.float().cpu(), host_cfg, i, pos.cpu(),
+                h_ffn=h.float().cpu())
+            own_h = rmsnorm(x1_c, hp["norm_ffn"])
+        del hp
+        res = {"halves_vs_sublayer": check_scaled(f"{name} halves", x1 + y,
+                                                  x2, PARITY_TOL),
+               "x1": check_scaled(f"{name} mixer half", x1.cpu(), x1_c,
+                                  BF16_PARITY_TOL),
+               "y": check_scaled(f"{name} ffn half", y.cpu(), y_c,
+                                 BF16_PARITY_TOL)}
+        for leaf in kv_c:
+            res[leaf] = check_scaled(f"{name} {leaf}", kv[leaf].cpu(),
+                                     kv_c[leaf], BF16_PARITY_TOL)
+        if aux is not None:
+            res["aux"] = check_scaled(f"{name} aux", aux.cpu(), aux_c,
+                                      BF16_PARITY_TOL)
+            router = p["moe.router"]
+            _, idx, kept = routing(h[0], router, cfg)
+            _, idx_c, kept_c = routing(h_c[0], router.cpu(), cfg)
+            _, idx_own, _ = routing(own_h[0], router.cpu(), cfg)
+            res["topk_flips"] = int((idx.cpu() != idx_c).any(-1).sum())
+            res["kept_equal"] = bool(torch.equal(kept.cpu(), kept_c))
+            res["flips_whole_sublayer"] = int(
+                (idx.cpu() != idx_own).any(-1).sum())
+            if res["topk_flips"] or not res["kept_equal"]:
+                raise AssertionError(f"{name}: routing differs on the same "
+                                     f"input: {res}")
+        out[i] = res
+        x = x2
+        gc.collect()
+    emit(phase="moe_layer_parity", arch=JAMBA, batch=B, prompt_len=S,
+         layers=out, nvidia_smi=smi)
+    return out
+
+
+def moe_serve(cfg, params, smi):
+    """(d): the bf16 model served through ``ServeEngine`` (B 4, prompt
+    1024, 32 greedy steps): a warm-up run, then the measured run with the
+    launch counts read around it; then one decode step's busy share."""
+    B, S, steps = MOE["batch"], MOE["prompt_len"], MOE["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    engine = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
+    engine.generate(prompt, 2)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens = engine.generate(prompt, steps).cpu()
+    snap = snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    row = {"arch": JAMBA, "layers": cfg.num_layers, "cut": "depth 32 -> 8",
+           "dtype": cfg.dtype, "batch": B, "prompt_len": S, "steps": steps,
+           "params": sum(v.numel() for v in params.values()),
+           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+           "prefill_tok_s": B * S / st["prefill_s"],
+           "decode_tok_s": B * steps / st["decode_s"],
+           "peak_mem_bytes": peak, "launches": snap["launches"],
+           "routes": snap["routes"], "tokens": tokens[0].tolist(),
+           "nvidia_smi": smi}
+    if not st["logits_finite"]:
+        raise AssertionError(f"{JAMBA}: non-finite logits")
+    if tokens.shape != (B, steps) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{JAMBA}: tokens out of range")
+    want = expected_launches(cfg, steps)
+    if snap["launches"] != want or want != MOE["launches"]:
+        raise AssertionError(f"{JAMBA}: launches {snap['launches']}, "
+                             f"expected {want} = {MOE['launches']}")
+    for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
+        routes = {"tensor_core": want[name], "cuda_core": 0}
+        if snap["routes"][name] != routes:
+            raise AssertionError(f"{JAMBA}: {name} routes "
+                                 f"{snap['routes'][name]}, expected {routes}")
+    row["decode"] = decode_busy(engine, prompt)
+    emit(phase="moe_serve", **row)
+    return snap
+
+
+def moe_sublayer_ms(cfg, policy=None):
+    """(f): the MoE FFN sub-layer at full width, bf16, B 2, S 1024: forward
+    and forward + backward ms by CUDA events (``policy`` None: ep 1; else
+    ``moe_apply``'s region over the policy's ep axis, on every rank)."""
+    B, S = MOE["time_batch"], MOE["time_seq"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    p = moe.moe_init(cfg, torch.bfloat16, gen)
+    x = randn((B, S, cfg.d_model), torch.bfloat16, gen)
+    cot = randn((B, S, cfg.d_model), torch.bfloat16, gen)
+
+    def fwd():
+        with torch.no_grad():
+            return moe.moe_apply(x, p, cfg, policy)
+
+    def fwd_bwd():
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xx = x.detach().requires_grad_()
+        y, aux = moe.moe_apply(xx, leaves, cfg, policy)
+        return torch.autograd.grad((y * cot).float().sum() + aux,
+                                   [xx] + list(leaves.values()))
+
+    iters = MOE["time_iters"]
+    T, k, E = B * S, cfg.experts_per_token, cfg.num_experts
+    cap = int(math.ceil(T * k / E * cfg.capacity_factor))
+    flops = 3 * 2 * E * cap * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+    out = {"tokens": T, "capacity": cap, "expert_gemm_flops_fwd": flops,
+           "fwd_ms": event_ms(fwd, iters), "fwd_bwd_ms": event_ms(fwd_bwd,
+                                                                  iters)}
+    out["fwd_tflops"] = flops / out["fwd_ms"] / 1e9
+    out["fwd_bwd_tflops"] = 3 * flops / out["fwd_bwd_ms"] / 1e9
+    return out
+
+
+def moe_train_parity():
+    """(e), single device: reduced kimi and llama4 (MoE FFNs, attention
+    mixers) fp32 train loss and every grad leaf card vs host at 1e-4 (as
+    tests/test_torch_train.py); reduced jamba's loss at 1e-4 and each
+    sublayer's vector-Jacobian product on the same input (its fp32 forward
+    amplifies a rounding past the pin end to end;
+    tests/test_torch_model.py): the output at 1e-4, the grads within
+    PARITY_TOL of each one's scale, since the SSD's fp32 kernel is itself
+    pinned at 1e-4 to the plain form and the chunked form's backward at
+    jamba's decays (exp of chunk cumsums in the hundreds) moves a grad by
+    ~5e-4 absolute between two fp32 summation orders."""
+    out = {}
+    for arch in (KIMI, LLAMA4, JAMBA):
+        cfg = reduced(get_config(arch))
+        params = init_params(cfg, torch.Generator().manual_seed(17), "cpu")
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=24,
+                                       global_batch=4, seed=0)).batch(0)
+        loss_fn = build_loss_fn(cfg)
+        card = {k: v.cuda() for k, v in params.items()}
+        loss_g, met_g, grads_g = loss_and_grads(
+            loss_fn, card, batch_to_device(batch, "cuda"))
+        loss_c, met_c, grads_c = loss_and_grads(
+            loss_fn, params, batch_to_device(batch, "cpu"))
+        name = f"moe train parity fp32 {arch}"
+        out[arch] = {"loss": [float(loss_g), float(loss_c)],
+                     "aux": [float(met_g["aux"]), float(met_c["aux"])],
+                     "loss_err": check_close(f"{name} loss", loss_g.cpu(),
+                                             loss_c, MOE_TRAIN_TOL)}
+        if arch != JAMBA:
+            out[arch]["grad_err"] = max(
+                check_close(f"{name} grad {k}", grads_g[k].cpu(), g,
+                            MOE_TRAIN_TOL) for k, g in grads_c.items())
+            continue
+        S, B = 12, 2
+        gen = torch.Generator().manual_seed(18)
+        pos = torch.arange(S)[None, :].expand(B, S)
+        x = params["embed"][torch.randint(0, cfg.vocab_size, (B, S),
+                                          generator=gen)]
+        worst = 0.0
+        for i in range(cfg.num_layers):
+            s, j = divmod(i, cfg.block_period)
+            pre = f"blocks.pos{j}."
+            p = {k[len(pre):]: v[s] for k, v in params.items()
+                 if k.startswith(pre)}
+            cot = torch.randn((B, S, cfg.d_model), generator=gen)
+            res = {}
+            for dev in ("cuda", "cpu"):
+                leaves = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+                xx = x.to(dev).requires_grad_()
+                y, _, aux = sublayer_apply(leaves, xx, cfg, j,
+                                           positions=pos.to(dev),
+                                           mode="train")
+                roots, cots = [y], [cot.to(dev)]
+                if aux.requires_grad:
+                    roots, cots = roots + [aux], cots + [torch.ones((), device=dev)]
+                gs = torch.autograd.grad(roots, [xx] + list(leaves.values()),
+                                         cots, materialize_grads=True,
+                                         allow_unused=True)
+                res[dev] = (y.detach().cpu(), [g.cpu() for g in gs])
+            check_close(f"{name} layer {i} y", res["cuda"][0],
+                        res["cpu"][0], MOE_TRAIN_TOL)
+            worst = max(worst, *(check_scaled(
+                f"{name} layer {i} grad {k}", a, b, PARITY_TOL)
+                for k, a, b in zip(["x"] + list(p), res["cuda"][1],
+                                   res["cpu"][1])))
+            x = res["cpu"][0]
+        out[arch]["layer_err"] = worst
+    return out
+
+
+def moe_hybrid_rank(rank, world_mesh, *, mesh):
+    """(e), the hybrid step: the ep-grads config of tests/md/test_moe_md.py
+    (``MOE_HYBRID_CFG``) through ``build_hybrid_value_and_grad`` on the (dp, pp, cp, tp, ep)
+    ``mesh``, fp32, M 2, against the single-device step (the microbatches'
+    mean loss) on rank 0's card, at that file's pins; then, on a live ep
+    axis, (f) the MoE sub-layer timed at ep = 4 (4 ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(**MOE_HYBRID_CFG)
+    dp, pp, cp, tp, ep = mesh
+    m = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device="cuda")
+    policy = Policy.for_mesh(m, explicit_tp=True)
+    M, B, S = 2, 16, 16
+    params = init_pipeline_params(cfg, torch.Generator().manual_seed(19), pp,
+                                  "cpu")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0)).batch(0)
+    batch = batch_to_device(data, "cuda")
+    card = {k: v.cuda() for k, v in params.items()}
+    pvg, _ = build_hybrid_value_and_grad(cfg, policy, num_microbatches=M)
+    loss, grads = pvg(card, {"tokens": batch["tokens"].reshape(M, B // M, S)},
+                      batch["labels"].reshape(M, B // M, S))
+    out = {"rank": rank, "mesh": list(mesh), "loss": float(loss)}
+    if rank == 0:
+        dense = {k: v.detach().requires_grad_()
+                 for k, v in from_pipeline_params(card).items()}
+        loss_fn = build_loss_fn(cfg)
+        tok = batch["tokens"].reshape(M, B // M, S)
+        lab = batch["labels"].reshape(M, B // M, S)
+        ref_loss = sum(loss_fn(dense, {"tokens": tok[i], "labels": lab[i]})[0]
+                       for i in range(M)) / M
+        ref = dict(zip(dense, torch.autograd.grad(ref_loss,
+                                                  list(dense.values()))))
+        got = from_pipeline_params(grads)
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        bad = [k for k, g in got.items()
+               if bool(((g - ref[k]).abs() > MOE_HYBRID_ATOL
+                        + MOE_HYBRID_RTOL * ref[k].abs()).any())]
+        out.update(ref_loss=float(ref_loss), loss_rel_err=rel, bad=bad,
+                   grad_err=max(float((g - ref[k]).abs().max())
+                                for k, g in got.items()))
+        if rel > MOE_HYBRID_LOSS_RTOL or bad:
+            raise AssertionError(f"moe hybrid {mesh}: loss rel {rel}, grads "
+                                 f"off the pins: {bad}")
+    if ep > 1 and tp == 1:
+        pol = Policy.for_mesh(launch_mesh.make_host_mesh(
+            (ep,), ("ep",), device="cuda"))
+        out["sublayer_ep"] = {"ep": ep, **moe_sublayer_ms(jamba_cfg(), pol)}
+    torch.distributed.barrier()
+    return out
+
+
+def phase_moe(smi):
+    """Phase 12, ``moe``: (a) the kernels at jamba's shapes, (b) the MoE FFN
+    at full width card vs host, (c) the served model layer by layer, (d)
+    jamba-v0.1-52b served at full width cut to 8 layers, (f) the MoE
+    sub-layer timed, (e) the MoE train path at small widths, single device
+    and hybrid over NCCL.  Prints ``{"moe": ...}``; returns the launch
+    counts of the serve run by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout
+    print(free, flush=True)
+    res = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "free_g": free.splitlines()}
+    moe_kernel_checks()
+    moe_ffn_parity(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = jamba_cfg()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    res["layer_parity"] = moe_layer_parity(cfg, params, smi)
+    snap = moe_serve(cfg, params, smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["sublayer"] = {"ep": 1, "batch": MOE["time_batch"],
+                       "seq": MOE["time_seq"], **moe_sublayer_ms(cfg)}
+    emit(phase="moe_sublayer", arch=JAMBA, **res["sublayer"], nvidia_smi=smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train_parity"] = moe_train_parity()
+    cards = torch.cuda.device_count()
+    res["hybrid"] = {}
+    for name, mesh in MOE_MESHES.items():
+        world = math.prod(mesh)
+        if world > cards:
+            res["hybrid"][name] = {"skipped": f"mesh {mesh} needs {world} "
+                                   f"cards, this machine has {cards}"}
+            continue
+        ranks = launch_mesh.spawn(functools.partial(moe_hybrid_rank,
+                                                    mesh=mesh), world,
+                                  device="cuda", timeout_s=600)
+        if len({r["loss"] for r in ranks}) != 1:
+            raise AssertionError(f"moe hybrid {mesh}: ranks disagree")
+        res["hybrid"][name] = ranks[0]
+        if "sublayer_ep" in ranks[0]:
+            res["sublayer_ep4"] = ranks[0]["sublayer_ep"]
+    if "sublayer_ep4" not in res:
+        res["sublayer_ep4"] = {"skipped": f"ep 4 needs 4 cards, this machine "
+                               f"has {cards}"}
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"moe": res}), flush=True)
+    return {f"serve {JAMBA}": snap}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1369,6 +1953,7 @@ def main():
     phase_dist(smi)
     by_path.update(phase_region(smi))
     by_path.update(phase_hybrid(smi))
+    by_path.update(phase_moe(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

@@ -452,7 +452,9 @@ def pipeline_value_and_grad_local(pre_fn, stage_fn, post_fn, policy,
                 psum_split(g_stage, rep_axes)
             else:
                 for k, g in zip(p_stage, g_stage):
-                    psum_split([g], tuple(stage_psum_axes(k)))
+                    axes = tuple(stage_psum_axes(k))
+                    if axes:   # no axes: the leaf's grad is complete here
+                        psum_split([g], axes)
             psum_split([loss], (pipe_axis,) + rep_axes)
             loss.mul_(inv_m)
             grads = {}

@@ -6,6 +6,8 @@ checkpoint is not ported yet).
         --prompt-len 1024 --steps 32 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --prompt-len 2048 --steps 32 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --reduced --device cpu --steps 4
 
 Runs on the card (``--device cuda``, the default; raises without one);
 ``--device cpu`` runs on the host through the kernels' plain versions.

@@ -11,21 +11,27 @@ runs on the host through the kernels' plain versions.  ``train()`` is the
 same path for a caller with a ``ModelConfig`` of its own (for example one
 cut in depth).
 
-Hybrid DP x pipe x TP (DESIGN §5): ``--hybrid-mesh DP,PP,CP,TP,EP`` (or
-DP,PP,CP,TP with EP = 1, or DP,PP,TP with CP = EP = 1) runs the scheduled
-pipeline executor over a (data, pipe, model) mesh, one process per rank,
-each holding only its stage's parameters and its TP shard:
+Hybrid DP x pipe x TP x EP (DESIGN §5, §8): ``--hybrid-mesh
+DP,PP,CP,TP,EP`` (or DP,PP,CP,TP with EP = 1, or DP,PP,TP with CP = EP =
+1) runs the scheduled pipeline executor over a (data, pipe, model) mesh,
+or (data, pipe, ctx, model, ep) when EP > 1, one process per rank, each
+holding only its stage's parameters, its TP shard and its block of
+experts; MoE FFNs dispatch their tokens over the ep axis:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
         --reduced --device cpu --hybrid-mesh 2,2,1,2,1 --microbatches 4 \
         --steps 3 --batch 16 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \
+        --reduced --device cpu --hybrid-mesh 2,1,1,1,4 --microbatches 2 \
+        --steps 3 --batch 16 --seq 16
 
 ``--device cuda`` runs one NCCL rank per card (the world may not exceed
 the card count); ``--device cpu`` spawns gloo ranks.  ``train_hybrid_rank``
 is the per-rank path for a caller already inside a world (``chip_smoke.py``).
 Not ported yet, each exits naming its ROADMAP Queue 1 item: CP > 1 (item
-7), EP > 1 or an MoE arch (item 8), ``--elastic``, ``--fault-plan`` and
-``--ckpt-dir`` (item 10).  Tied-embedding archs (mamba2-370m, phi4-mini)
+7), ``--elastic``, ``--fault-plan`` and ``--ckpt-dir`` (item 10).  Explicit
+TP (TP > 1) takes MoE FFNs only behind attention mixers, as the
+reference: jamba's sit behind SSM mixers, so it runs at TP = 1.  Tied-embedding archs (mamba2-370m, phi4-mini)
 raise as the pipeline cut does in the reference.
 """
 
@@ -111,10 +117,6 @@ def check_hybrid(cfg, hybrid):
     if cp > 1:
         raise SystemExit("--hybrid-mesh CP > 1 needs ring attention "
                          "(ROADMAP Queue 1 item 7, context parallelism)")
-    if ep > 1 or cfg.num_experts:
-        raise SystemExit(f"--hybrid-mesh EP = {ep} / MoE arch {cfg.name}: "
-                         "MoE and expert parallelism are not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
     _check_pipelineable(cfg)
 
 
@@ -225,7 +227,7 @@ def main(argv=None):
                          "model, ep) mesh with this factorization, one "
                          "process per rank (a 4-value DP,PP,CP,TP form is "
                          "accepted with EP=1, a 3-value DP,PP,TP form with "
-                         "CP=EP=1); CP and EP must be 1 (not ported yet)")
+                         "CP=EP=1); CP must be 1 (not ported yet)")
     ap.add_argument("--microbatches", type=int, default=4,
                     help="pipeline microbatches per step (hybrid mesh only)")
     ap.add_argument("--schedule", default="1f1b",

@@ -1,4 +1,5 @@
-from . import attention, blocks, common, convert, lenet, model, ssm  # noqa: F401
+from . import (attention, blocks, common, convert, lenet, model, moe,  # noqa: F401
+               ssm)
 from .convert import params_from_jax  # noqa: F401
 from .model import (  # noqa: F401
     forward,

@@ -1,14 +1,15 @@
-"""Decoder blocks: (attention | SSD mixer) + (dense MLP | none) sub-layers
-(mirrors ``repro/models/blocks.py``).
+"""Decoder blocks: (attention | SSD mixer) + (dense MLP | MoE | none)
+sub-layers (mirrors ``repro/models/blocks.py``).
 
-A *superblock* is one period of the architecture's layer pattern; the
-model stacks its parameters on a leading dim.  MoE sub-layers are not
-ported yet (ROADMAP Queue 1, "MoE and expert parallelism").
+A *superblock* is one period of the architecture's layer pattern (8 for
+jamba's [7 x mamba + 1 x attn] interleave, 2 for alternating-MoE archs);
+the model stacks its parameters on a leading dim.
 
 Given a ``policy`` with ``explicit_tp``, ``sublayer_apply`` runs the
 attention+MLP sublayer in train mode as ONE ``dist_jit`` region over the
 policy's model axis (``_tp_sublayer_apply``): the residual stream enters
-feature-sharded and the four projections ride the ring matmuls.
+feature-sharded and the four projections ride the ring matmuls.  An MoE
+FFN with a policy runs ``moe_apply``'s own region.
 ``pipeline_stage_body`` is one pipeline stage on local blocks, run by the
 executor of ``core/pipeline.py``.
 """
@@ -19,25 +20,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import layers as L
+from repro_torch.core import primitives as prim
 from repro_torch.core.compile import dist_jit
 from repro_torch.sharding import Partitioned
 
 from .attention import attention_block, attention_block_tp, attn_init
 from .common import mlp_apply, mlp_init, rmsnorm, rmsnorm_sharded, subtree
+from .moe import moe_apply, moe_init, moe_stage_body
 from .ssm import ssm_block, ssm_init
 
 
 def layer_kinds(cfg, layer: int) -> tuple[str, str]:
     return cfg.mixer_kind(layer), cfg.ffn_kind(layer)
-
-
-def check_supported(cfg):
-    """Raise ``NotImplementedError`` for the families this port lacks."""
-    for i in range(cfg.block_period):
-        if layer_kinds(cfg, i)[1] == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP Queue 1, "
-                "\"MoE and expert parallelism\")")
 
 
 def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
@@ -56,6 +50,9 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
         p.update({f"mlp.{k}": v for k, v in
                   mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
                            generator, stacked).items()})
+    elif ffn == "moe":
+        p.update({f"moe.{k}": v for k, v in
+                  moe_init(cfg, dtype, generator, stacked).items()})
     return p
 
 
@@ -122,20 +119,23 @@ def _tp_sublayer_apply(p, x, cfg, policy, *, positions, ffn):
 
 def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
                    index: int = 0, cache_len=None, policy=None):
-    """One decoder layer: x + mixer(norm(x)); x + mlp(norm(x)).
+    """One decoder layer: x + mixer(norm(x)); x + ffn(norm(x)).
 
     ``index`` is this superblock's position in the stack (the slice of the
-    stacked decode cache it owns).  Returns (x, state): the mixer's prefill
-    cache entries (``{"k", "v"}`` or ``{"conv", "ssm"}``), else None.
-    With a ``policy`` whose ``explicit_tp`` is set, the train-mode
-    attention+MLP sublayer runs as one region over its model axis
-    (``_tp_sublayer_apply``); x, positions and p are then the global
+    stacked decode cache it owns).  Returns (x, state, aux): the mixer's
+    prefill cache entries (``{"k", "v"}`` or ``{"conv", "ssm"}``, else
+    None) and the MoE load-balance loss (0 without an MoE FFN).  With a
+    ``policy`` whose ``explicit_tp`` is set, the train-mode attention+MLP
+    sublayer runs as one region over its model axis
+    (``_tp_sublayer_apply``); an MoE FFN with a policy runs
+    ``moe_apply``'s region.  x, positions and p are then the global
     values, the same on every rank of the policy's mesh.
     """
     mixer, ffn = layer_kinds(cfg, layer)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _tp_fusable(cfg, policy, mixer, ffn, mode):
         return _tp_sublayer_apply(p, x, cfg, policy, positions=positions,
-                                  ffn=ffn), None
+                                  ffn=ffn), None, aux
     h = rmsnorm(x, p["norm_mixer"])
     if mixer == "attn":
         out, kv = attention_block(subtree(p, "attn"), h, cfg,
@@ -147,8 +147,12 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     x = x + out
     if ffn != "none":
         h = rmsnorm(x, p["norm_ffn"])
-        x = x + mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type)
-    return x, kv
+        if ffn == "mlp":
+            out = mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type)
+        else:
+            out, aux = moe_apply(h, subtree(p, "moe"), cfg, policy)
+        x = x + out
+    return x, kv, aux
 
 
 def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
@@ -161,18 +165,31 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
     bodies run inside the region, so TP collectives compose with the pipe
     axis), else the full-feature ``(B_mb, S, d_model)`` residual through
     the ordinary ``sublayer_apply`` (kernels and all).  Training math only.
-    MoE FFNs wait for ROADMAP Queue 1 item 8 and a live ctx axis for item
-    7; both raise."""
+
+    MoE sublayers run through :func:`models.moe.moe_stage_body` (dispatch
+    and combine as AllToAll adjoints on the live ep axis, DESIGN §8) and
+    the stage RETURNS ``(x, aux)``: the summed load-balance loss rides the
+    executor's ``stage_aux`` channel.  Dense configs return the bare
+    activation.  Under explicit TP the MoE half gathers the feature-sharded
+    residual to the full width (``all_gather_replicated``), runs the same
+    dispatch on every model rank, and restricts the result back to the
+    rank's own block (``shard_slice_replicated``); each such sublayer needs
+    an attention mixer.  A live ctx axis raises (ROADMAP Queue 1 item 7).
+    """
     explicit = policy is not None and getattr(policy, "explicit_tp", False)
     if policy is not None and policy.active_ctx_axis is not None:
         raise NotImplementedError(
             "pipeline stages over a live ctx axis (ring attention) are not "
             "ported yet (ROADMAP Queue 1 item 7, context parallelism)")
+    ep_axis = policy.active_ep_axis if policy is not None else None
+    # the axes the stage's tokens shard over: the MoE aux statistics reduce
+    # over exactly these, so aux is the global-microbatch value everywhere
+    stat_axes = tuple(a for a in (
+        policy.active_data_axis if policy is not None else None, ep_axis)
+        if a)
     kinds = [layer_kinds(cfg, i) for i in range(cfg.block_period)]
-    if any(ffn == "moe" for _, ffn in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE pipeline stages are not ported yet (ROADMAP "
-            "Queue 1 item 8, MoE and expert parallelism)")
+    has_moe = any(ffn == "moe" for _, ffn in kinds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # unbind: each stacked leaf's grad is one stack of per-superblock grads
     layers = {k: v.unbind(0) for k, v in p_stage.items()}
     n = len(next(iter(layers.values())))
@@ -180,16 +197,47 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
         p_blk = {k: v[j] for k, v in layers.items()}
         for i, (mixer, ffn) in enumerate(kinds):
             pp = subtree(p_blk, f"pos{i}")
-            if explicit:
+            if ffn == "moe":
+                if explicit:
+                    if mixer != "attn":
+                        raise NotImplementedError(
+                            "explicit-TP pipeline stages support attention "
+                            f"mixers with MoE FFNs, got ({mixer}, {ffn})")
+                    ax = policy.model_axis
+                    x = _tp_sublayer_body(pp, x, positions, cfg, policy,
+                                          "none")
+                    h = rmsnorm_sharded(x, pp["norm_ffn"], ax)
+                    h = prim.all_gather_replicated(h, ax, 2)
+                    y, aux_i = moe_stage_body(h, subtree(pp, "moe"), cfg,
+                                              ep_axis=ep_axis,
+                                              stat_axes=stat_axes)
+                    x = x + prim.shard_slice_replicated(y, ax, 2)
+                else:
+                    h = rmsnorm(x, pp["norm_mixer"])
+                    if mixer == "attn":
+                        out, _ = attention_block(subtree(pp, "attn"), h, cfg,
+                                                 positions=positions,
+                                                 mode="train")
+                    else:
+                        out, _ = ssm_block(subtree(pp, "ssm"), h, cfg,
+                                           mode="train")
+                    x = x + out
+                    h = rmsnorm(x, pp["norm_ffn"])
+                    y, aux_i = moe_stage_body(h, subtree(pp, "moe"), cfg,
+                                              ep_axis=ep_axis,
+                                              stat_axes=stat_axes)
+                    x = x + y
+                aux = aux + aux_i
+            elif explicit:
                 if mixer != "attn" or ffn not in ("mlp", "none"):
                     raise NotImplementedError(
                         "explicit-TP pipeline stages support attention + "
                         f"dense-FFN sublayers, got ({mixer}, {ffn})")
                 x = _tp_sublayer_body(pp, x, positions, cfg, policy, ffn)
             else:
-                x, _ = sublayer_apply(pp, x, cfg, i, positions=positions,
-                                      mode="train")
-    return x
+                x, _, _ = sublayer_apply(pp, x, cfg, i, positions=positions,
+                                         mode="train")
+    return (x, aux) if has_moe else x
 
 
 def superblock_init(cfg, dtype, generator, stacked: int) -> dict:
@@ -205,15 +253,19 @@ def superblock_apply(p, x, cfg, *, positions, mode, cache=None, index: int = 0,
     """Apply one superblock (period consecutive layers).
 
     cache: flat ``{"pos{i}.<leaf>": stacked cache}`` (decode) or None.
-    Returns (x, {"pos{i}.<leaf>": this superblock's cache entries}), the
-    entries being K/V or the conv and SSM states, filled in prefill only.
+    Returns (x, {"pos{i}.<leaf>": this superblock's cache entries}, aux):
+    the entries are K/V or the conv and SSM states, filled in prefill only;
+    aux is the MoE load-balance loss summed over the period.
     """
     new_kv = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.block_period):
         sub_cache = subtree(cache, f"pos{i}") if cache is not None else None
-        x, kv = sublayer_apply(subtree(p, f"pos{i}"), x, cfg, i,
-                               positions=positions, mode=mode, cache=sub_cache,
-                               index=index, cache_len=cache_len)
+        x, kv, aux = sublayer_apply(subtree(p, f"pos{i}"), x, cfg, i,
+                                    positions=positions, mode=mode,
+                                    cache=sub_cache, index=index,
+                                    cache_len=cache_len)
+        aux_total = aux_total + aux
         if kv is not None:
             new_kv.update({f"pos{i}.{k}": t for k, t in kv.items()})
-    return x, new_kv
+    return x, new_kv, aux_total

@@ -7,8 +7,11 @@ the decoders' trees, the pipeline cut's ``{"pre", "stage", "post"}`` tree
 (``pre.embed``, ``stage.pos0.attn.wq``, ...), a sublayer's
 (``norm_mixer``, ``attn.wq``, ...) and LeNet-5's (``{"conv1": {"w", "b"},
 ..., "fc3": {...}}`` -> ``conv1.w``, ..., ``fc3.b``, the keys of
-``models/lenet.py``) alike.  ``to_rank_params`` cuts a global pipeline
-tree into the blocks one rank of a hybrid mesh holds.
+``models/lenet.py``) alike, MoE leaves included (``moe.router``,
+``moe.we_up`` ``(E, d, h)``, ``moe.shared.w_up``, ...).  ``to_rank_params``
+cuts a global pipeline tree into the blocks one rank of a hybrid mesh
+holds: its stage, its TP shard and, on a live ep axis, its contiguous
+block of ``E/ep`` experts (``launch/specs.py::expert_assignment``).
 """
 
 from __future__ import annotations

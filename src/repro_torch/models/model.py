@@ -1,9 +1,9 @@
 """DecoderLM: the decoder-only model (mirrors ``repro/models/model.py``).
 
-Dense and SSM (mamba2) architectures so far; MoE and ``embeds`` frontends
-raise ``NotImplementedError`` naming their ROADMAP item.  The superblock
-parameters are stacked on a leading dim, as the reference's scan layout
-(``model.py:32``), and applied by a Python loop.  The pipeline cut
+Dense, MoE (kimi, llama4), hybrid (jamba) and SSM (mamba2) architectures;
+``embeds`` frontends raise ``NotImplementedError`` naming their ROADMAP
+item.  The superblock parameters are stacked on a leading dim, as the
+reference's scan layout (``model.py:32``), and applied by a Python loop.  The pipeline cut
 (``to_pipeline_params`` ... ``pipeline_fns``) feeds ``core/pipeline.py``.
 
 Modes:
@@ -20,9 +20,9 @@ from repro_torch.device import resolve_device
 
 from repro_torch.sharding import Partitioned
 
-from .blocks import (check_supported, pipeline_stage_body, superblock_apply,
-                     superblock_init)
+from .blocks import pipeline_stage_body, superblock_apply, superblock_init
 from .common import dense_init, rmsnorm, subtree
+from .moe import EXPERT_LEAVES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,7 +35,6 @@ def init_params(cfg, generator, device=None, dtype=None) -> dict:
     on ``device``, replaces the JAX key.  ``device`` defaults to ``cuda``
     and raises without a card; ``dtype`` defaults to ``cfg.dtype``.
     """
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or DTYPES[cfg.dtype]
     if generator.device.type != device.type:
@@ -120,9 +119,12 @@ def pipeline_param_parts(cfg, policy, pparams) -> dict:
 
     Stage leaves lead with the ``pipe`` axis (the stacked stage dim); under
     ``policy.explicit_tp`` the projection/norm leaves also carry their
-    model-axis TP sharding (the fused TP sublayer's specs).  pre/post
-    leaves stay replicated.  MoE expert leaves are not ported (ROADMAP
-    Queue 1 item 8)."""
+    model-axis TP sharding (the fused TP sublayer's specs).  MoE expert
+    weights shard their E dim over the logical ``ep`` axis (the live ep
+    axis, replicated otherwise; DESIGN §8); the router and shared-expert
+    leaves stay replicated over ep and model (their dispatch runs the same
+    on every ep rank, and on every model rank under explicit TP).  pre/post
+    leaves stay replicated."""
     explicit = policy is not None and getattr(policy, "explicit_tp", False)
     col = Partitioned("pipe", None, None, "model")
     row = Partitioned("pipe", None, "model", None)
@@ -130,13 +132,18 @@ def pipeline_param_parts(cfg, policy, pparams) -> dict:
     tp_table = {"wq": col, "wk": col, "wv": col, "wo": row,
                 "w_up": col, "w_gate": col, "w_down": row,
                 "norm_mixer": vec, "norm_ffn": vec}
+    # (S, per, E, ..., ...): E, dim 2, splits over the ep axis
+    expert_part = Partitioned("pipe", None, "ep", None, None)
 
     def part(key):
-        if key.startswith("stage."):
-            name = key.rsplit(".", 1)[-1]
-            return tp_table[name] if explicit and name in tp_table else (
-                Partitioned("pipe"))
-        return Partitioned()
+        if not key.startswith("stage."):
+            return Partitioned()
+        name = key.rsplit(".", 1)[-1]
+        if ".moe." in key:
+            return expert_part if name in EXPERT_LEAVES else Partitioned("pipe")
+        if explicit and name in tp_table:
+            return tp_table[name]
+        return Partitioned("pipe")
     return {k: part(k) for k in pparams}
 
 
@@ -147,10 +154,11 @@ def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
     explicit TP: its parameter cotangent is then in contribution form over
     the model axis, the executor's ``pre_psum_axes``); stage_fn applies
     this stage's superblocks; logits_fn gathers the features back and
-    applies the final norm and head.  ``aux_weight`` weighs the MoE
-    auxiliary loss, which waits for ROADMAP Queue 1 item 8 (dense configs
-    return the bare activation).  Call the three inside a region
-    (``core/compile.py``)."""
+    applies the final norm and head.  MoE configs make stage_fn return
+    ``(act, aux_weight * aux)``, the stage's weighted load-balance loss on
+    the executor's ``stage_aux`` channel (the ``aux_weight`` default of
+    ``train.build_loss_fn``); dense configs return the bare activation.
+    Call the three inside a region (``core/compile.py``)."""
     from repro_torch.core import layers as L
     from repro_torch.core import primitives as prim
 
@@ -168,8 +176,12 @@ def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
         B, S_loc = x.shape[:2]
         positions = torch.arange(S_loc, device=x.device)[None, :].expand(
             B, S_loc)
-        return pipeline_stage_body(p_stage, x, cfg, policy,
-                                   positions=positions)
+        out = pipeline_stage_body(p_stage, x, cfg, policy,
+                                  positions=positions)
+        if cfg.num_experts:
+            y, aux = out
+            return y, aux_weight * aux
+        return out
 
     def logits_fn(p_post, y):
         if explicit:
@@ -187,7 +199,6 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
     ``pos{i}.k``/``pos{i}.v`` (n_super, B, max_seq, KH, hd) in ``cfg.dtype``;
     for an SSM position ``pos{i}.conv`` (n_super, B, k-1, d_inner) in
     ``cfg.dtype`` and ``pos{i}.ssm`` (n_super, B, H, P, N) in float32."""
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     n_super = cfg.num_layers // cfg.block_period
@@ -216,9 +227,9 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
     ``{"cache_len": int}`` and S == 1.  In prefill ``new_cache`` holds the
     prompt's K/V stacked ``(n_super, B, S, KH, hd)`` and the conv and SSM
     states after the prompt, stacked ``(n_super, ...)``; in decode it is
-    ``cache``, every leaf updated in place.  ``aux_loss`` is 0 (no MoE).
+    ``cache``, every leaf updated in place.  ``aux_loss`` is the MoE
+    load-balance loss summed over the layers (fp32; 0 without MoE).
     """
-    check_supported(cfg)
     if "embeds" in batch:
         raise NotImplementedError(
             "embeds frontends are not ported yet (ROADMAP Queue 1, "
@@ -238,11 +249,14 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
     layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
     n_super = cfg.num_layers // cfg.block_period
     kv_per_block = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(n_super):
         p_blk = {k: v[s] for k, v in layers.items()}
-        x, kv = superblock_apply(p_blk, x, cfg, positions=positions, mode=mode,
-                                 cache=cache, index=s, cache_len=cache_len)
+        x, kv, aux_s = superblock_apply(p_blk, x, cfg, positions=positions,
+                                        mode=mode, cache=cache, index=s,
+                                        cache_len=cache_len)
         kv_per_block.append(kv)
+        aux = aux + aux_s
 
     if mode == "prefill":
         new_cache = {k: torch.stack([kv[k] for kv in kv_per_block])
@@ -252,4 +266,4 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
     x = rmsnorm(x, params["norm_final"])
     head = params.get("lm_head")
     logits = x @ (params["embed"].T if head is None else head)
-    return logits, new_cache, torch.zeros((), device=x.device)
+    return logits, new_cache, aux

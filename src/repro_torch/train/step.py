@@ -4,8 +4,8 @@
 ``build_train_step`` returns a ``(state, batch) -> (state, metrics)``
 function:
 
-- fp32 softmax cross-entropy over the logits + the MoE auxiliary loss (0
-  until MoE is ported) + z-loss;
+- fp32 softmax cross-entropy over the logits + the weighted MoE
+  load-balance loss + z-loss;
 - microbatch gradient accumulation (``cfg.grad_accum``), a Python loop into
   an ``accum_dtype`` accumulator where the reference scans;
 - optional gradient compression (a bf16 round trip);
@@ -166,6 +166,7 @@ def _hybrid_executor(cfg, policy, *, num_microbatches, schedule, aux_weight,
     from repro_torch.launch.specs import param_specs
     from repro_torch.models.model import (pipeline_fns, pipeline_param_parts,
                                           to_pipeline_params)
+    from repro_torch.models.moe import EXPERT_LEAVES
 
     sched = make_schedule(schedule, num_microbatches, policy.pipe_size)
     pre_fn, stage_fn, logits_fn = pipeline_fns(cfg, policy, aux_weight)
@@ -177,7 +178,23 @@ def _hybrid_executor(cfg, policy, *, num_microbatches, schedule, aux_weight,
     pspecs = to_pipeline_params(cfg, param_specs(cfg), policy.pipe_size)
     parts = pipeline_param_parts(cfg, policy, pspecs)
     explicit = getattr(policy, "explicit_tp", False)
+    ep_axis = policy.active_ep_axis
+    stage_psum_axes = None
+    if cfg.num_experts and ep_axis:
+        # An expert-weight block differs per ep rank, and the combine
+        # all-to-all has already brought it the cotangents of every ep
+        # rank's tokens: ep leaves its drain-tail sum.  Every other leaf
+        # keeps the data + ctx + ep sum.
+        rep = tuple(a for a in (policy.active_data_axis,
+                                policy.active_ctx_axis, ep_axis) if a)
+
+        def stage_psum_axes(key):
+            if ".moe." in key and key.rsplit(".", 1)[-1] in EXPERT_LEAVES:
+                return tuple(a for a in rep if a != ep_axis)
+            return rep
     kwargs = dict(pre_psum_axes=(policy.model_axis,) if explicit else (),
+                  stage_psum_axes=stage_psum_axes,
+                  stage_aux=bool(cfg.num_experts),
                   nonfinite_flag=nonfinite_flag, grad_fault_hook=fault_hook,
                   phase_hook=phase_hook)
     return (pre_fn, stage_fn, post_fn, policy, sched), kwargs, sched, parts

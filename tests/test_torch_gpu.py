@@ -39,7 +39,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import dist_check, mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import (from_pipeline_params, init_params,
-                                init_pipeline_params)
+                                init_pipeline_params, moe)
 from repro_torch.optim import make_optimizer
 from repro_torch.train import build_train_step, init_train_state
 from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -373,6 +373,89 @@ def test_train_two_steps_card_vs_host(gen):
     for name, p in states["cpu"]["params"].items():
         torch.testing.assert_close(states["cuda"]["params"][name].cpu(), p,
                                    atol=1e-3, rtol=1e-3, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# jamba-v0.1-52b's shapes and its MoE FFN (chip_smoke.py phase 12 (a), (b)).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d", [(4, 8192), (4096, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_at_jamba_gated_width(gen, rows, d, dtype):
+    """jamba's gated norm over d_inner 8192 (its own Triton
+    specialisation)."""
+    x = _randn((rows, d), dtype, gen)
+    w = 1.0 + 0.1 * _randn((d,), torch.float32, gen)
+    tol = NORM_TOL[dtype]
+    torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                               atol=tol, rtol=tol)
+
+
+def test_ssd_tensor_core_kernel_at_jamba_shape(gen):
+    """bf16, B 4, S 1024, H 128, P 64, N 16, chunk 64, dt and A as the
+    block draws them: y against the plain chunked form at the bf16 pin,
+    the state at the fp32 pin (both formed in fp32)."""
+    B, S, H, P, N = 4, 1024, 128, 64, 16
+    dt = F.softplus(_randn((B, S, H), torch.float32, gen))
+    a_neg = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
+                       * math.log(16.0))
+    bf16 = torch.bfloat16
+    args = (_randn((B, S, H, P), bf16, gen), dt, a_neg,
+            _randn((B, S, N), bf16, gen), _randn((B, S, N), bf16, gen))
+    before = ops.ROUTE_LAUNCHES["ssd_scan"]["tensor_core"]
+    y, h = ops.ssd_scan(*args, chunk=64)
+    assert ops.ROUTE_LAUNCHES["ssd_scan"]["tensor_core"] == before + 1
+    want_y, want_h = ref.ssd_chunked(*args, chunk=64)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=SSD_TOL[bf16],
+                               rtol=SSD_TOL[bf16])
+    torch.testing.assert_close(h, want_h, atol=SSD_TOL[torch.float32],
+                               rtol=SSD_TOL[torch.float32])
+
+
+def test_flash_tensor_core_kernel_gqa_group_4(gen):
+    """jamba's attention: 32 query heads over 8 KV heads, hd 128, causal,
+    B 4, S 1024, bf16 on the tensor-core route."""
+    bf16 = torch.bfloat16
+    q = _randn((4, 1024, 32, 128), bf16, gen)
+    k, v = (_randn((4, 1024, 8, 128), bf16, gen) for _ in range(2))
+    before = ops.ROUTE_LAUNCHES["flash_attention"]["tensor_core"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.ROUTE_LAUNCHES["flash_attention"]["tensor_core"] == before + 1
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True),
+                               atol=FLASH_TOL[bf16], rtol=FLASH_TOL[bf16])
+
+
+def test_moe_ffn_full_width_card_matches_host(gen):
+    """jamba's MoE FFN at full width (E 16, top-2, d 4096, h 14336), fp32,
+    T 512, card vs host: y and the grads of ``sum(y * c) + aux`` (x, the
+    router, the expert weights) within 1e-3 of each one's largest |value|,
+    aux within 1e-5 relative, the same top-k choices and kept slots."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), dtype="float32")
+    p = moe.moe_init(cfg, torch.float32, gen)
+    x = _randn((1, 512, cfg.d_model), torch.float32, gen)
+    cot = _randn((1, 512, cfg.d_model), torch.float32, gen)
+
+    def run(pp, xx, cc):
+        leaves = {k: v.detach().requires_grad_() for k, v in pp.items()}
+        xx = xx.detach().requires_grad_()
+        y, aux = moe.moe_apply(xx, leaves, cfg, None)
+        probs = torch.softmax(xx[0].detach() @ pp["router"], dim=-1)
+        idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+        cap = math.ceil(512 * cfg.experts_per_token / cfg.num_experts
+                        * cfg.capacity_factor)
+        keep = moe.dispatch_plan(idx, cfg.num_experts, cap)[2]
+        grads = torch.autograd.grad((y * cc).sum() + aux,
+                                    [xx] + list(leaves.values()))
+        return ([y.detach(), *grads], aux.detach(), idx, keep)
+
+    card = run(p, x, cot)
+    host = run({k: v.cpu() for k, v in p.items()}, x.cpu(), cot.cpu())
+    assert torch.equal(card[2].cpu(), host[2])
+    assert torch.equal(card[3].cpu(), host[3])
+    torch.testing.assert_close(card[1].cpu(), host[1], atol=0, rtol=1e-5)
+    for a, b in zip(card[0], host[0]):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-3 * float(b.abs().max()), err
 
 
 # ---------------------------------------------------------------------------

@@ -108,8 +108,8 @@ def _tp(mesh, init) -> dict:
     p = _leaves(params_from_jax(_tree(init, "tp")))
     x, positions = (torch.from_numpy(a) for a in C.tp_inputs())
     pol = Policy(mesh, explicit_tp=True, fsdp=False, seq_shard=False)
-    y, _ = sublayer_apply(p, x, cfg, 0, positions=positions, mode="train",
-                          policy=pol)
+    y, _, _ = sublayer_apply(p, x, cfg, 0, positions=positions, mode="train",
+                             policy=pol)
     grads = torch.autograd.grad((y.float() ** 2).sum(), list(p.values()))
     return {"fx": y.detach(), "grad": dict(zip(p, grads))}
 

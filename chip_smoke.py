@@ -5,7 +5,7 @@ card and hold each hand-written kernel against its plain PyTorch version.
 
 Three paths are served, glm4-9b (dense attention), mamba2-370m (SSM) and
 jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), and glm4-9b is
-trained.
+trained, also with its sequence over a ctx axis (ring attention).
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -19,8 +19,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    serving shape with dt and A drawn as mamba2's block makes them.  bf16
    flash attention and SSD inputs take the tensor-core kernels, fp32 ones
    the CUDA-core kernels; the bf16 routes are also checked at every head
-   dim (flash) and every head dim and chunk tile (SSD), on strided views,
-   and refusing a misaligned stride, and each call's route is checked.
+   dim (flash, 112 included) and every head dim and chunk tile (SSD), on
+   strided views, and refusing a misaligned stride, and each call's route
+   is checked.  Both flash routes at kimi-k2-1t-a32b's head dim 112 (q
+   (1,1024,64,112), k/v (1,1024,8,112), causal) against the plain
+   version, timed beside it and SDPA.
    Then each kernel's (per route), its plain version's and a library
    call's times at its serving shape, beside the bound the card's data
    sheet gives and the achieved TFLOP/s and GB/s.
@@ -126,6 +129,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (1, 1, 1, 1, 4) and (1, 1, 1, 2, 2) where 4 cards exist (which also
    time (f) at ep 4); on one card those say they skip and why.  One line
    ``{"moe": {...}}``.
+13. ring: context parallelism, the KVRingShift ring of
+   ``core/ring_attention.py`` (plain torch, as the reference's, which
+   refuses its flash kernel under ctx).  (0) kimi-k2-1t-a32b's attention
+   sub-layer at full width (d_model 7168, 64 heads of 112 over 8), bf16
+   prefill B 1, S 1024 on the card (one tensor-core flash launch) against
+   the host's fp32 run: within BF16_PARITY_TOL of scale; its MoE FFN (384
+   experts) does not fit one card.  (a) glm4-9b's attention widths, q
+   (2,4096,32,128), k/v (2,4096,2,128), chunk 512, cut into cp = 4
+   virtual ranks of 1024, each composed from ``ring_hop`` in the
+   reference's hop order: output and q/k/v vjp against the plain
+   ``blockwise_attention`` on the whole sequence, fp32 (TF32 off) at the
+   reference's pins scaled by the output's magnitude, bf16 within the
+   bf16 pin of scale; ``ring_attention`` itself on a live one-rank ctx
+   axis over NCCL.  (b) One hop (B 4, Sq = Skv = 1024, bf16) forward and
+   forward + backward by CUDA events beside the flash kernel on the same
+   block, and one virtual rank's peak memory against
+   ``attention_working_set_bytes(..., cp=4)``.  (c) The ctx train path on
+   one rank (glm4-9b full width cut to 2 layers, bf16), the counts set to
+   0 just before and read just after: flash 0, RMSNorm 2L + 1.  (d) Where
+   4 cards exist, the hybrid step with a live ctx axis at (dp, pp, cp,
+   tp, ep) = (1, 1, 4, 1, 1) and (1, 1, 2, 2, 1), one NCCL rank per card:
+   fp32 glm4-9b cut to 2 layers, B 2, S 2048, M 2 against the
+   single-device step (the reference's pins), then bf16 cut to 8 layers,
+   B 4, S 4096, M 4, 5 steps through ``launch.train.train_hybrid_rank``
+   (no flash launch; RMSNorm as phase 11 counts it): step time, tokens/s,
+   peak memory a rank; on one card each mesh records that it skipped and
+   why.  One line ``{"ring": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -159,6 +189,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
                                  reduced)
+from repro_torch.core import primitives as prim  # noqa: E402
+from repro_torch.core import ring_attention as ring  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
@@ -167,11 +199,13 @@ from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import (from_pipeline_params,  # noqa: E402
                                 init_params, init_pipeline_params, moe)
-from repro_torch.models.attention import attention_block  # noqa: E402
+from repro_torch.models.attention import (attention_block,  # noqa: E402
+                                          attn_init)
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
 from repro_torch.models.common import (mlp_apply, rmsnorm,  # noqa: E402
                                        subtree)
+from repro_torch.models.model import DTYPES  # noqa: E402
 from repro_torch.models.ssm import ssm_block  # noqa: E402
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
@@ -180,8 +214,8 @@ from repro_torch.sharding import Policy  # noqa: E402
 from repro_torch.train import (batch_to_device,  # noqa: E402
                                build_hybrid_train_step,
                                build_hybrid_value_and_grad, build_loss_fn,
-                               build_train_step, init_train_state,
-                               loss_and_grads)
+                               build_train_step, cross_entropy,
+                               init_train_state, loss_and_grads)
 
 GLM, MAMBA = "glm4-9b", "mamba2-370m"
 SERVE = {GLM: {"batch": 4, "prompt_len": 1024, "steps": 32},
@@ -253,7 +287,7 @@ MOE_AUX_RTOL = 1e-5
 MOE_TRAIN_TOL = 1e-4   # tests/test_torch_train.py's pin
 # tests/md/test_moe_md.py:125-150: the ep-grads config and its pins, at 4
 # query heads over 2 of 16 (its 8 over 4 of 8 at the same width and GQA
-# group: the flash kernels take head dims 16, 32, 64 and 128)
+# group: head dim 8 is not one the flash kernels take, HEAD_DIMS)
 MOE_HYBRID_CFG = dict(name="ep-grads", family="moe", num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
                       d_ff=128, vocab_size=256, dtype="float32", remat=False,
@@ -264,6 +298,24 @@ MOE_HYBRID_LOSS_RTOL, MOE_HYBRID_ATOL, MOE_HYBRID_RTOL = 1e-5, 1e-5, 2e-4
 # (dp, pp, cp, tp, ep); the last two need 4 cards (NVLink all-to-all)
 MOE_MESHES = {"single": (1, 1, 1, 1, 1), "ep4": (1, 1, 1, 1, 4),
               "ep2_tp2": (1, 1, 1, 2, 2)}
+
+
+# the ring phase (13): glm4-9b's attention widths cut into cp = 4 virtual
+# ranks of 1024 (chunk = attn_chunk), the reference's ring pins
+# (tests/md/test_ring_attention.py:105-110) scaled by the output's magnitude;
+# one hop timed at B 4, Sq = Skv = 1024; the 4-card meshes (dp, pp, cp, tp,
+# ep), their fp32 parity cut and bf16 timing cut
+RING = {"batch": 2, "seq": 4096, "cp": 4, "chunk": 512, "hop_batch": 4,
+        "hop_seq": 1024, "iters": 5, "ctx_layers": 2, "ctx_batch": 2,
+        "ctx_seq": 1024}
+RING_FWD_TOL, RING_GRAD_RTOL, RING_GRAD_ATOL = 2e-5, 5e-4, 5e-5
+RING_MESHES = {"cp4": (1, 1, 4, 1, 1), "cp2_tp2": (1, 1, 2, 2, 1)}
+RING_PARITY = {"batch": 2, "seq": 2048, "micro": 2}   # 2 layers, fp32
+RING_TRAIN = {"layers": 8, "batch": 4, "seq": 4096, "micro": 4, "steps": 5}
+# kimi-k2-1t-a32b's attention (64 heads of 112 over 8 KV heads, d_model
+# 7168): the head dim 112 kernels at its prefill shape, and its full-width
+# attention sub-layer card (bf16) vs host (fp32)
+KIMI_ATTN = {"batch": 1, "seq": 1024}
 
 
 def expect_routes(name, dtype, before):
@@ -412,7 +464,43 @@ def phase_kernels():
                 check_close(f"{case} h_final vs {plain}", h, want_h,
                             SSD_TOL[dtype])
     phase_tensor_core_checks(gen)
+    phase_head_dim_112(gen)
     return phase_timing(gen)
+
+
+def phase_head_dim_112(gen):
+    """Head dim 112 (kimi-k2-1t-a32b: 64 heads of 112 over 8 KV heads) on
+    both routes against the plain version at kimi's prefill shape, causal,
+    at the pins; each timed beside the plain version and SDPA, with its
+    bound (the bf16 kernel's P V product runs the 128 columns it lays the
+    head out at, 16 more than the bound counts)."""
+    cfg = get_config(KIMI)
+    B, S = KIMI_ATTN["batch"], KIMI_ATTN["seq"]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    _, (bw, flops_bf16, flops_fp32) = peaks(torch.cuda.get_device_name(0))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (randn((B, S, n, hd), dtype, gen) for n in (H, KH, KH))
+        before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+        got = ops.flash_attention(q, k, v)
+        expect_routes("flash_attention", dtype, before)
+        torch.cuda.synchronize()
+        err = check_close(f"flash hd=112 {KIMI} q ({B},{S},{H},{hd}) "
+                          f"{dtype} causal", got, ref.attention_ref(q, k, v),
+                          FLASH_TOL[dtype])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = dtype.itemsize * (2 * q.numel() + k.numel() + v.numel())
+        work = 4 * B * H * hd * (S * (S + 1) // 2)
+        peak = flops_bf16 if dtype == torch.bfloat16 else flops_fp32
+        emit(phase="timing_hd112", arch=KIMI, route=ROUTES[dtype],
+             dtype=str(dtype), shape=f"q ({B},{S},{H},{hd}) k/v "
+             f"({B},{S},{KH},{hd}) causal", max_abs_err=err,
+             ms=cuda_ms(lambda: ops.flash_attention(q, k, v)),
+             plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), iters=5),
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)),
+             bound_ms=max(nbytes / bw, work / peak) * 1e3,
+             bound_by="bytes" if nbytes / bw >= work / peak
+             else "operations")
 
 
 def phase_tensor_core_checks(gen):
@@ -1155,37 +1243,39 @@ def phase_region(smi):
             for dtype in tp}
 
 
-def hybrid_launches(cfg, policy, ticks_of):
+def hybrid_launches(cfg, policy, ticks_of, M=None):
     """The launches this rank makes (PERF.md §6): each layer of its stage
     launches flash once and, outside explicit TP (whose body normalises
     with the plain sharded norm), RMSNorm twice, on every B tick and on
     every F tick but the last stage's (it skips them); the last stage adds
     the final norm on each B tick.  ``ticks_of(n_f, n_b)`` scales a run's
-    F and B tick counts."""
-    S, M = policy.pipe_size, HYBRID["micro"]
+    F and B tick counts; M microbatches (``HYBRID["micro"]`` by default).
+    Under a live ctx axis attention rings in plain torch: no flash."""
+    S, M = policy.pipe_size, M or HYBRID["micro"]
     s = policy.mesh.get_coordinate()[policy.axis_names.index("pipe")]
     last = s == S - 1
     ticks = ticks_of(0 if last else M, M)
     per = cfg.num_layers // S
     norms = 0 if policy.explicit_tp else 2 * per
-    return {"flash_attention": per * ticks,
+    return {"flash_attention": 0 if policy.active_ctx_axis else per * ticks,
             "rmsnorm": norms * ticks + (ticks_of(0, M) if last else 0),
             "ssd_scan": 0}
 
 
-def hybrid_parity(policy):
-    """(a): fp32 glm4-9b cut to 2 layers, B 4, S 1024, M 4, each schedule
-    through ``build_hybrid_value_and_grad`` (global arguments, every rank)
-    against ``loss_and_grads`` on the dense params on rank 0's card: the
-    reference's pins, and each grad leaf also to PARITY_TOL of its own
-    largest |value| as phase 7 holds it (at full width most grad elements
-    lie below the pins' atol, so the pins alone would pass a leaf that
-    lost a microbatch's or a shard's share); returns {schedule: (launches,
-    errors, loss, single-device loss)}, errors with each leaf's scale."""
+def hybrid_parity(policy, B=HYBRID["batch"], S=HYBRID["seq"],
+                  M=HYBRID["micro"], schedules=("1f1b", "fill_drain")):
+    """(a): fp32 glm4-9b cut to 2 layers, B 4, S 1024, M 4 (or the sizes
+    given), each schedule through ``build_hybrid_value_and_grad`` (global
+    arguments, every rank) against ``loss_and_grads`` on the dense params
+    on rank 0's card: the reference's pins, and each grad leaf also to
+    PARITY_TOL of its own largest |value| as phase 7 holds it (at full
+    width most grad elements lie below the pins' atol, so the pins alone
+    would pass a leaf that lost a microbatch's or a shard's share);
+    returns {schedule: (launches, errors, loss, single-device loss)},
+    errors with each leaf's scale."""
     cfg = dataclasses.replace(get_config(GLM),
                               num_layers=HYBRID["parity_layers"],
                               dtype="float32")
-    B, S, M = HYBRID["batch"], HYBRID["seq"], HYBRID["micro"]
     pp = init_pipeline_params(
         cfg, torch.Generator(device="cuda").manual_seed(7), policy.pipe_size,
         "cuda")
@@ -1197,7 +1287,7 @@ def hybrid_parity(policy):
         loss_r, _, grads_r = loss_and_grads(build_loss_fn(cfg),
                                             from_pipeline_params(pp), batch)
     out = {}
-    for schedule in ("1f1b", "fill_drain"):
+    for schedule in schedules:
         pvg, _ = build_hybrid_value_and_grad(cfg, policy, num_microbatches=M,
                                              schedule=schedule)
         ops.reset_launches()
@@ -1206,7 +1296,7 @@ def hybrid_parity(policy):
                           batch["labels"].reshape(M, B // M, S))
         torch.cuda.synchronize()
         snap = snapshot()
-        want = hybrid_launches(cfg, policy, lambda f, b: f + b)
+        want = hybrid_launches(cfg, policy, lambda f, b: f + b, M)
         if (snap["launches"] != want
                 or snap["routes"]["flash_attention"]["cuda_core"]
                 != want["flash_attention"]):
@@ -1937,6 +2027,399 @@ def phase_moe(smi):
     return {f"serve {JAMBA}": snap}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: context parallelism, the KVRingShift ring over the ctx axis.
+# ---------------------------------------------------------------------------
+
+def kimi_attention_parity(smi):
+    """(0) kimi-k2-1t-a32b's attention sub-layer at full width (d_model
+    7168, 64 heads of 112 over 8 KV heads), bf16 prefill on the card (one
+    tensor-core flash launch at head dim 112) against the host's fp32 run
+    from the same bf16-rounded parameters: output and K/V within
+    BF16_PARITY_TOL of their scale; the card's forward timed.  Its MoE FFN
+    (384 experts) does not fit one card and is left out."""
+    cfg = dataclasses.replace(get_config(KIMI), dtype="bfloat16")
+    B, S = KIMI_ATTN["batch"], KIMI_ATTN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    p = attn_init(cfg, torch.bfloat16, gen)
+    x = randn((B, S, cfg.d_model), torch.bfloat16, gen)
+    pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
+
+    def run():
+        return attention_block(p, x, cfg, positions=pos, mode="prefill")
+
+    ops.reset_launches()
+    out_g, kv_g = run()
+    torch.cuda.synchronize()
+    snap = snapshot()
+    want = {"flash_attention": 1, "rmsnorm": 0, "ssd_scan": 0}
+    if (snap["launches"] != want
+            or snap["routes"]["flash_attention"]["tensor_core"] != 1):
+        raise AssertionError(f"kimi attention: launches {snap}")
+    host = dataclasses.replace(cfg, dtype="float32")
+    out_c, kv_c = attention_block(
+        {k: v.float().cpu() for k, v in p.items()}, x.float().cpu(), host,
+        positions=pos.cpu(), mode="prefill")
+    errs = {"out": check_scaled(f"{KIMI} attention out bf16 card vs fp32 "
+                                f"host", out_g.cpu(), out_c,
+                                BF16_PARITY_TOL)}
+    for name in ("k", "v"):
+        errs[name] = check_scaled(f"{KIMI} attention {name} bf16 card vs "
+                                  f"fp32 host", kv_g[name].cpu(),
+                                  kv_c[name], BF16_PARITY_TOL)
+    with torch.no_grad():
+        ms = event_ms(run, 10)
+    return {"arch": KIMI, "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "batch": B, "seq": S, "share_of_scale": errs, "launches": snap,
+            "forward_ms": ms, "left_out": "the MoE FFN (384 experts of "
+            "7168 x 2048) does not fit one card", "nvidia_smi": smi}
+
+
+def virtual_ring(q, k, v, cp, chunk):
+    """Attention over the whole sequence as ``cp`` virtual ranks of
+    contiguous shards, each composed from ``ring_hop`` in the reference's
+    hop order (hop t: rank r holds the shard of rank (r - t) % cp, the
+    diagonal first) at the same global positions."""
+    s = q.shape[1] // cp
+    qs, ks, vs = (t.split(s, dim=1) for t in (q, k, v))
+    outs = []
+    for r in range(cp):
+        carry = ring.ring_init(qs[r])
+        for t in range(cp):
+            src = (r - t) % cp
+            carry = ring.ring_hop(carry, qs[r], ks[src], vs[src],
+                                  q_pos0=r * s, kv_base=src * s, chunk=chunk)
+        outs.append(ring.ring_finish(carry, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def check_pinned(name, got, want, rtol, atol_share):
+    """|got - want| <= atol_share * max |want| + rtol |want| everywhere:
+    the reference's pins with the absolute one scaled by the magnitude of
+    ``want``; returns the max abs error."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    bad = int((err > atol_share * scale + rtol * want.abs()).sum())
+    emit(phase="check", case=name, max_abs_err=float(err.max()),
+         scale=scale, rtol=rtol, atol=atol_share * scale, mismatches=bad)
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {bad} elements outside the pins")
+    return float(err.max())
+
+
+def ring_arithmetic(gen):
+    """(a) The 4-virtual-rank ring at glm4-9b's attention widths against
+    the plain ``blockwise_attention`` on the whole sequence: forward and
+    the q/k/v vjp, fp32 (TF32 off) at the reference's pins scaled by the
+    output's magnitude, bf16 within the bf16 pin of scale."""
+    cfg = get_config(GLM)
+    B, S, cp, chunk = RING["batch"], RING["seq"], RING["cp"], RING["chunk"]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {"shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KH},{hd})",
+           "cp": cp, "chunk": chunk}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [randn((B, S, n, hd), dtype, gen).requires_grad_()
+               for n in (H, KH, KH)]
+        g = randn((B, S, H, hd), dtype, gen)
+        res = {}
+        for name, fn in (
+                ("ring", lambda q, k, v: virtual_ring(q, k, v, cp, chunk)),
+                ("plain", lambda q, k, v: ref.blockwise_attention(
+                    q, k, v, chunk=chunk))):
+            y = fn(*qkv)
+            res[name] = [y.detach(), *torch.autograd.grad(y, qkv, g)]
+            del y
+            torch.cuda.synchronize()
+        errs = {}
+        for i, part in enumerate(("out", "dq", "dk", "dv")):
+            case = f"ring cp={cp} {part} {dtype} vs blockwise"
+            if dtype == torch.bfloat16:
+                errs[part] = check_scaled(case, res["ring"][i],
+                                          res["plain"][i], FLASH_TOL[dtype])
+            elif part == "out":
+                errs[part] = check_pinned(case, res["ring"][i],
+                                          res["plain"][i], RING_FWD_TOL,
+                                          RING_FWD_TOL)
+            else:
+                errs[part] = check_pinned(case, res["ring"][i],
+                                          res["plain"][i], RING_GRAD_RTOL,
+                                          RING_GRAD_ATOL)
+        out[str(dtype)] = errs
+        del res, qkv, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_hop_timing(gen):
+    """(b) One hop at glm4-9b's widths, B 4, Sq = Skv = 1024, bf16 (the
+    diagonal block, whose work every hop does): forward and forward +
+    backward by CUDA events, the flash kernel on the same block, and the
+    hop's bound (the whole block's products, since no block is skipped,
+    and the shards and running stats each moved once).  Then the peak
+    memory of one virtual rank's four hops at (a)'s shape against
+    ``attention_working_set_bytes(..., cp=4)``."""
+    cfg = get_config(GLM)
+    B, s, chunk = RING["hop_batch"], RING["hop_seq"], RING["chunk"]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bf16 = torch.bfloat16
+    _, (bw, flops_bf16, _) = peaks(torch.cuda.get_device_name(0))
+    q, k, v = (randn((B, s, n, hd), bf16, gen).requires_grad_()
+               for n in (H, KH, KH))
+    g = randn((B, s, H, hd), bf16, gen)
+
+    def hop():
+        return ring.ring_hop(ring.ring_init(q), q, k, v, q_pos0=0,
+                             kv_base=0, chunk=chunk)
+
+    def hop_fwd_bwd():
+        y = ring.ring_finish(hop(), bf16)
+        return torch.autograd.grad(y, (q, k, v), g)
+
+    with torch.no_grad():
+        fwd_ms = event_ms(hop, RING["iters"])
+    fwd_bwd_ms = event_ms(hop_fwd_bwd, RING["iters"])
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    flash_ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd))
+    stats = (2 * B * s * H + B * s * H * hd) * 4          # m, l, acc fp32
+    nbytes = 2 * (qd.numel() + kd.numel() + vd.numel()) + 2 * stats
+    work = 4 * B * H * hd * s * s
+    out = {"shape": f"q ({B},{s},{H},{hd}) k/v ({B},{s},{KH},{hd}) bf16",
+           "chunk": chunk, "forward_ms": fwd_ms,
+           "forward_backward_ms": fwd_bwd_ms,
+           "flash_causal_ms": flash_ms, "bytes": nbytes, "flops": work,
+           "bound_ms": max(nbytes / bw, work / flops_bf16) * 1e3,
+           "bound_by": "bytes" if nbytes / bw >= work / flops_bf16
+           else "operations"}
+    del q, k, v, g, qd, kd, vd
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one virtual rank's hops at (a)'s shape: its shards held, each
+    # visiting shard received as a fresh copy, forward only
+    Bm, S, cp = RING["batch"], RING["seq"], RING["cp"]
+    full = [randn((Bm, S, n, hd), bf16, gen) for n in (H, KH, KH)]
+    s_loc = S // cp
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r = cp - 1                       # the rank that keeps every block
+    qr = full[0][:, r * s_loc:(r + 1) * s_loc].clone()
+    with torch.no_grad():
+        carry = ring.ring_init(qr)
+        for t in range(cp):
+            src = (r - t) % cp
+            kc, vc = (x[:, src * s_loc:(src + 1) * s_loc].clone()
+                      for x in full[1:])
+            carry = ring.ring_hop(carry, qr, kc, vc, q_pos0=r * s_loc,
+                                  kv_base=src * s_loc, chunk=chunk)
+            del kc, vc
+        o = ring.ring_finish(carry, bf16)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    model = ring.attention_working_set_bytes(Bm, S, H, hd, chunk=chunk,
+                                             cp=cp, dtype_bytes=2)
+    out["memory"] = {"shape": f"B {Bm} S {S} cp {cp}", "rank": r,
+                     "measured_peak_bytes": measured,
+                     "working_set_model_bytes": model,
+                     "measured_over_model": measured / model,
+                     "model_at_cp1_bytes": ring.attention_working_set_bytes(
+                         Bm, S, H, hd, chunk=chunk, cp=1, dtype_bytes=2)}
+    del full, qr, carry, o
+    return out
+
+
+def ctx_loss(params, batch, cfg):
+    """The stage body's ctx path on one rank (``sublayer_apply`` with the
+    ctx axis, as ``pipeline_stage_body`` calls it), with the embedding,
+    final norm, head and loss of ``forward``."""
+    x = params["embed"][batch["tokens"]].to(DTYPES[cfg.dtype])
+    B, S = batch["tokens"].shape
+    pos = (prim.axis_index("ctx") * S
+           + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    blocks = {k[len("blocks."):]: v.unbind(0) for k, v in params.items()
+              if k.startswith("blocks.")}
+    for j in range(cfg.num_layers // cfg.block_period):
+        p_blk = {k: v[j] for k, v in blocks.items()}
+        for i in range(cfg.block_period):
+            x, _, _ = sublayer_apply(subtree(p_blk, f"pos{i}"), x, cfg, i,
+                                     positions=pos, mode="train",
+                                     ctx_axis="ctx")
+    logits = rmsnorm(x, params["norm_final"]) @ params["lm_head"]
+    return cross_entropy(logits, batch["labels"])[0]
+
+
+
+def ring_one_rank(rank, world_mesh):
+    """(a, continued) ``ring_attention`` itself on a live one-rank ctx axis
+    (one hop, no shift) against ``blockwise_attention``, fp32, at glm4-9b's
+    heads; (c) the ctx train path on one rank (glm4-9b at full width cut
+    to 2 layers, bf16): forward and backward with the counts set to 0 just
+    before and read just after: no flash launch (the ring is plain torch,
+    as in the reference), 2L + 1 RMSNorm launches; its loss against the
+    flash path's (``build_loss_fn``) on the same batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = launch_mesh.make_host_mesh((1,), ("ctx",), device="cuda")
+    cfg = get_config(GLM)
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    B, S, chunk = RING["ctx_batch"], RING["ctx_seq"], RING["chunk"]
+    q, k, v = (randn((B, S, n, hd), torch.float32, gen) for n in (H, KH, KH))
+    with prim.use_mesh(mesh):
+        got = ring.ring_attention(q, k, v, "ctx", chunk=chunk)
+    out = {"one_rank_ring_max_abs_err": check_pinned(
+        "ring_attention on a one-rank ctx axis vs blockwise", got,
+        ref.blockwise_attention(q, k, v, chunk=chunk), RING_FWD_TOL,
+        RING_FWD_TOL)}
+    del q, k, v, got
+    tcfg = dataclasses.replace(cfg, num_layers=RING["ctx_layers"])
+    params = init_params(tcfg, gen, "cuda")
+    batch = batch_to_device(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+        seed=0)).batch(0), "cuda")
+    leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+    ops.reset_launches()
+    with prim.use_mesh(mesh):
+        loss = ctx_loss(leaves, batch, tcfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    snap = snapshot()
+    want = {"flash_attention": 0, "rmsnorm": 2 * tcfg.num_layers + 1,
+            "ssd_scan": 0}
+    if snap["launches"] != want:
+        raise AssertionError(f"ctx train path: launches {snap}, expected "
+                             f"{want}")
+    with torch.no_grad():
+        flash_loss = float(build_loss_fn(tcfg)(params, batch)[0])
+    loss = float(loss.detach())
+    rel = abs(loss - flash_loss) / abs(flash_loss)
+    if rel > FLASH_TOL[torch.bfloat16] or not all(
+            bool(torch.isfinite(g_).all()) for g_ in grads):
+        raise AssertionError(f"ctx train path: loss {loss} vs flash "
+                             f"path {flash_loss}")
+    out["ctx_train"] = {"arch": GLM, "layers": tcfg.num_layers,
+                        "dtype": tcfg.dtype, "batch": B, "seq": S,
+                        "loss": loss, "flash_path_loss": flash_loss,
+                        "loss_rel_diff": rel, "launches": snap}
+    return out
+
+
+def ring_rank(rank, world_mesh, *, mesh):
+    """(d) on this rank of the (dp, pp, cp, tp, ep) ``mesh``, one NCCL
+    rank per card: ``hybrid_parity`` at B 2, S 2048, M 2, 1F1B (fp32
+    glm4-9b cut to 2 layers against the single-device step on rank 0, the
+    reference's pins and PARITY_TOL of each leaf's scale, the launches
+    counted: no flash under ctx); then bf16 cut to 8 layers,
+    B 4, S 4096, M 4, 5 steps through ``launch.train.train_hybrid_rank``
+    with the counts set to 0 just before and read just after (no flash;
+    RMSNorm by ``hybrid_launches``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp, pp, cp, tp, ep = mesh
+    m = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device="cuda")
+    policy = Policy.for_mesh(m, explicit_tp=tp > 1)
+    out = {"rank": rank, "mesh": list(mesh),
+           "coordinate": dict(zip(policy.axis_names, m.get_coordinate()))}
+    t0 = time.perf_counter()
+    snap, err, loss, loss_r = hybrid_parity(
+        policy, RING_PARITY["batch"], RING_PARITY["seq"],
+        RING_PARITY["micro"], ("1f1b",))["1f1b"]
+    out["parity"] = {"loss": loss, "single_device_loss": loss_r,
+                     "launches": snap, "seconds": time.perf_counter() - t0}
+    if err:
+        out["parity"].update(loss_rel_err=err.pop("loss"),
+                             worst_grad_share=max(
+                                 e["max_abs_err"] / max(e["scale"], 1e-30)
+                                 for e in err.values()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(GLM),
+                              num_layers=RING_TRAIN["layers"])
+    B, S, M, steps = (RING_TRAIN[k] for k in ("batch", "seq", "micro",
+                                              "steps"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist, policy = launch_train.train_hybrid_rank(
+        cfg, mesh, steps=steps, batch=B, seq=S, microbatches=M,
+        lr=TRAIN["lr"], seed=0, device="cuda", logger=lambda line: None)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    secs = sorted(rec["sec"] for rec in hist[1:])
+    median_s = (secs[(len(secs) - 1) // 2] + secs[len(secs) // 2]) / 2
+    out["train"] = {
+        "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": B, "seq": S,
+        "microbatches": M, "steps": steps,
+        "losses": [rec["loss"] for rec in hist],
+        "step_ms": [rec["sec"] * 1e3 for rec in hist],
+        "median_step_ms_2_5": median_s * 1e3, "tokens_per_s": B * S / median_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": snap, "seconds": time.perf_counter() - t0}
+    want = hybrid_launches(cfg, policy, lambda f, b: steps * (f + b), M)
+    if (snap["launches"] != want or len(hist) != steps
+            or any(not math.isfinite(r["loss"]) or r["skipped"]
+                   for r in hist)):
+        raise AssertionError(f"ring train {mesh}: {out['train']}, expected "
+                             f"launches {want}")
+    del state
+    torch.distributed.barrier()
+    return out
+
+
+def ring_meshes(smi):
+    """(d): each mesh of ``RING_MESHES`` where the machine has its cards;
+    on fewer cards each records that it skipped and why."""
+    cards = torch.cuda.device_count()
+    out = {}
+    for name, mesh in RING_MESHES.items():
+        world = math.prod(mesh)
+        if world > cards:
+            out[name] = {"skipped": f"mesh {mesh} needs {world} cards, this "
+                         f"machine has {cards}"}
+            continue
+        ranks = launch_mesh.spawn(functools.partial(ring_rank, mesh=mesh),
+                                  world, device="cuda", timeout_s=900)
+        for r in ranks:
+            if (r["parity"]["loss"] != ranks[0]["parity"]["loss"]
+                    or r["train"]["losses"] != ranks[0]["train"]["losses"]):
+                raise AssertionError(f"ring {mesh}: rank {r['rank']} "
+                                     f"disagrees")
+        out[name] = {**ranks[0], "nvidia_smi": smi, "ranks": [
+            {k: r[k] for k in ("rank", "coordinate")}
+            | {"peak_mem_bytes": r["train"]["peak_mem_bytes"],
+               "launches": r["train"]["launches"]["launches"]}
+            for r in ranks]}
+    return out
+
+
+def phase_ring(smi):
+    """Phase 13, ``ring``: (0) kimi's head-dim-112 attention sub-layer,
+    (a) the virtual ring's arithmetic, (b) one hop timed and one rank's
+    memory, (a, c) a one-rank ctx axis over NCCL, (d) the 4-card meshes.
+    Prints ``{"ring": ...}``; returns the launch counts of the ctx train
+    path (one rank) by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    res["kimi_attention"] = kimi_attention_parity(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["arithmetic"] = ring_arithmetic(gen)
+    res["hop"] = ring_hop_timing(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (one,) = launch_mesh.spawn(ring_one_rank, 1, device="cuda",
+                               timeout_s=600)
+    res["one_rank"] = one
+    res["meshes"] = ring_meshes(smi)
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"ring": res}), flush=True)
+    return {f"ring ctx train bf16 {GLM}": one["ctx_train"]["launches"]}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1954,6 +2437,7 @@ def main():
     by_path.update(phase_region(smi))
     by_path.update(phase_hybrid(smi))
     by_path.update(phase_moe(smi))
+    by_path.update(phase_ring(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

@@ -6,6 +6,7 @@
 - ``primitives``  parallel data movement + manual adjoints (paper §3)
 - ``linop``       the operator algebra: composable adjoint-aware LinearOps
 - ``adjoint``     the Eq. 13 coherence test harness
+- ``ring_attention``  context parallelism: the KVRingShift ring (DESIGN §6)
 """
 
 from . import (  # noqa: F401
@@ -14,6 +15,7 @@ from . import (  # noqa: F401
     memory,
     partition,
     primitives,
+    ring_attention,
 )
 
 from .adjoint import adjoint_test, inner, norm  # noqa: F401
@@ -25,4 +27,10 @@ from .partition import (  # noqa: F401
     conv_output_size,
     is_sensible_decomposition,
     max_halo_widths,
+)
+from .ring_attention import (  # noqa: F401
+    attention_working_set_bytes,
+    check_attention_budget,
+    ring_attention_region,
+    ring_hop,
 )

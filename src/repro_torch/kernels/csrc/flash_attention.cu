@@ -234,6 +234,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
         REPRO_FLASH_HD(16)
         REPRO_FLASH_HD(32)
         REPRO_FLASH_HD(64)
+        REPRO_FLASH_HD(112)
         REPRO_FLASH_HD(128)
         default:
             return cudaErrorInvalidValue;

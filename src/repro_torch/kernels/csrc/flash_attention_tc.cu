@@ -29,7 +29,8 @@
 //   loads overlap the math.
 // - S = Q K^T: wgmma m64n64k16, both operands K-major from swizzled shared
 //   memory.  The swizzle follows the row size: rows of min(hd, 64) bf16
-//   (32, 64 or 128 B) and two column boxes at hd = 128.
+//   (32, 64 or 128 B) and two column boxes at hd = 112 and 128 (at 112 the
+//   second box is zero-filled past column 112).
 // - The softmax runs on the accumulator fragments in registers (row max and
 //   sum over the 4 lanes of a quad); P is repacked in registers into the A
 //   operand of O += P V: wgmma m64nNk16 with V MN-major (transposed B), one
@@ -48,14 +49,19 @@ constexpr int WG_ROWS = 64;   // q rows per consumer warpgroup
 constexpr int THREADS = 256;  // two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
 
+// A head dim that is not a multiple of 64 above 64 (112) is laid out at
+// NB * CB = 128 columns: the last box runs past hd, TMA zero-fills its
+// columns >= hd (the map's inner dim is the true hd) and still counts the
+// whole box towards the barrier's transaction bytes.
 template <int HD>
 struct Cfg {
     static constexpr int CB = HD < 64 ? HD : 64;  // columns of a box
-    static constexpr int NB = HD / CB;            // boxes across hd
+    static constexpr int NB = (HD + CB - 1) / CB; // boxes across hd
+    static constexpr int HDP = NB * CB;           // columns in shared memory
     static constexpr int RB = CB * 2;             // bytes of a box row
     static constexpr uint32_t LAYOUT = gmma_layout(RB);
-    static constexpr int Q_BYTES = BM * HD * 2;
-    static constexpr int KV_BYTES = BN * HD * 2;
+    static constexpr int Q_BYTES = BM * HDP * 2;
+    static constexpr int KV_BYTES = BN * HDP * 2;
     static constexpr int BAR_OFF = Q_BYTES + 4 * KV_BYTES;
     // 1 KB of slack to align the tiles to 1024 B, then 7 barriers.
     static constexpr int SMEM = 1024 + BAR_OFF + 64;
@@ -64,6 +70,8 @@ struct Cfg {
 // Two blocks a SM (96 KB of shared memory and at most 128 registers a
 // thread each): at hd = 128 ptxas then spills 28 bytes, and the serving
 // shape still runs faster than with one block of 168 registers (PERF.md).
+// hd = 112 holds the same 128-column accumulator as hd = 128 (its last 16
+// columns are products with zero V columns, never stored).
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
@@ -146,7 +154,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
         const int k0 = t * BN;
         const uint32_t k_tile = sk + s * C::KV_BYTES, v_tile = sv + s * C::KV_BYTES;
         if (t < my_tiles) {
-            // ---- S = Q K^T ----
+            // ---- S = Q K^T (hd / 16 k-steps: the zero-filled columns
+            // past hd are never read) ----
             float sacc[32];
 #pragma unroll
             for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
@@ -278,8 +287,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
 #pragma unroll
                 for (int k = 0; k < C::CB / 8; ++k) {
                     const int col = bx * C::CB + 8 * k + c_in;
-                    *reinterpret_cast<uint32_t*>(op + col) =
-                        pack_bf16(oacc[bx][4 * k + 2 * i] * inv, oacc[bx][4 * k + 2 * i + 1] * inv);
+                    if (bx * C::CB + 8 * k < HD)  // the padded columns stay unstored
+                        *reinterpret_cast<uint32_t*>(op + col) = pack_bf16(
+                            oacc[bx][4 * k + 2 * i] * inv, oacc[bx][4 * k + 2 * i + 1] * inv);
                 }
         }
     }
@@ -287,6 +297,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
 
 // A rank-4 tensor map {hd, heads, seq, batch} over a bf16 (B,S,heads,hd)
 // tensor with the given element strides; boxes of {min(hd,64), 1, rows, 1}.
+// The inner dim is the true hd, so a box past it is zero-filled.
 template <int HD>
 CUresult encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch, int64_t sb,
                 int64_t ss, int64_t sh, int rows) {
@@ -340,6 +351,7 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* 
         case 16: return launch<16>(q, k, v, o, B, Sq, Skv, H, KH, strides, causal, scale, st);
         case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KH, strides, causal, scale, st);
         case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KH, strides, causal, scale, st);
+        case 112: return launch<112>(q, k, v, o, B, Sq, Skv, H, KH, strides, causal, scale, st);
         case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KH, strides, causal, scale, st);
         default: return cudaErrorInvalidValue;
     }

@@ -35,7 +35,7 @@ import torch
 from . import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 # The kernel each dtype launches: the bf16 tensor-core kernel or the fp32
 # CUDA-core one.
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}

@@ -11,16 +11,22 @@ runs on the host through the kernels' plain versions.  ``train()`` is the
 same path for a caller with a ``ModelConfig`` of its own (for example one
 cut in depth).
 
-Hybrid DP x pipe x TP x EP (DESIGN §5, §8): ``--hybrid-mesh
+Hybrid DP x pipe x ctx x TP x EP (DESIGN §5, §6, §8): ``--hybrid-mesh
 DP,PP,CP,TP,EP`` (or DP,PP,CP,TP with EP = 1, or DP,PP,TP with CP = EP =
 1) runs the scheduled pipeline executor over a (data, pipe, model) mesh,
-or (data, pipe, ctx, model, ep) when EP > 1, one process per rank, each
-holding only its stage's parameters, its TP shard and its block of
-experts; MoE FFNs dispatch their tokens over the ep axis:
+(data, pipe, ctx, model) when CP > 1, or (data, pipe, ctx, model, ep)
+when EP > 1, one process per rank, each holding only its stage's
+parameters, its TP shard and its block of experts.  CP > 1 shards every
+microbatch's sequence over the ctx axis and rings attention over it
+(``core/ring_attention.py``); MoE FFNs dispatch their tokens over the ep
+axis:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
         --reduced --device cpu --hybrid-mesh 2,2,1,2,1 --microbatches 4 \
         --steps 3 --batch 16 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --hybrid-mesh 2,1,2,2 --microbatches 4 --steps 3 \
+        --batch 16 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \
         --reduced --device cpu --hybrid-mesh 2,1,1,1,4 --microbatches 2 \
         --steps 3 --batch 16 --seq 16
@@ -28,8 +34,10 @@ experts; MoE FFNs dispatch their tokens over the ep axis:
 ``--device cuda`` runs one NCCL rank per card (the world may not exceed
 the card count); ``--device cpu`` spawns gloo ranks.  ``train_hybrid_rank``
 is the per-rank path for a caller already inside a world (``chip_smoke.py``).
-Not ported yet, each exits naming its ROADMAP Queue 1 item: CP > 1 (item
-7), ``--elastic``, ``--fault-plan`` and ``--ckpt-dir`` (item 10).  Explicit
+Not ported yet, each exits naming its ROADMAP Queue 1 item:
+``--elastic``, ``--fault-plan`` and ``--ckpt-dir`` (item 10).  CP > 1
+refuses SSM mixers (the reference scans each sequence shard from zero
+state) and a ``--seq`` it does not divide.  Explicit
 TP (TP > 1) takes MoE FFNs only behind attention mixers, as the
 reference: jamba's sit behind SSM mixers, so it runs at TP = 1.  Tied-embedding archs (mamba2-370m, phi4-mini)
 raise as the pipeline cut does in the reference.
@@ -110,13 +118,21 @@ def parse_hybrid(spec: str) -> tuple:
     return tuple(parts)
 
 
-def check_hybrid(cfg, hybrid):
-    """Refuse what the port's hybrid path lacks, naming its ROADMAP item;
-    a tied-embedding arch raises as the pipeline cut does."""
+def check_hybrid(cfg, hybrid, seq: int | None = None):
+    """Refuse what the hybrid path cannot run: a sequence the ctx axis does
+    not divide, and SSM mixers under CP > 1 (the reference scans each
+    sequence shard from zero state, which is not the global scan); a
+    tied-embedding arch raises as the pipeline cut does."""
     dp, pp, cp, tp, ep = hybrid
-    if cp > 1:
-        raise SystemExit("--hybrid-mesh CP > 1 needs ring attention "
-                         "(ROADMAP Queue 1 item 7, context parallelism)")
+    if seq is not None and seq % cp:
+        raise SystemExit(f"--seq {seq} not divisible by CP={cp}")
+    ssm = sorted({cfg.mixer_kind(i) for i in range(cfg.block_period)}
+                 - {"attn"})
+    if cp > 1 and ssm:
+        raise SystemExit(
+            f"--hybrid-mesh CP={cp} with {cfg.name}'s {'/'.join(ssm)} "
+            f"mixers is refused: the reference scans each sequence shard "
+            f"from zero state, which is not the global scan (run CP = 1)")
     _check_pipelineable(cfg)
 
 
@@ -142,7 +158,7 @@ def train_hybrid_rank(cfg, hybrid, *, steps: int, batch: int, seq: int,
     rank alone would pair its step 0 with its peers' pending step and
     train the ranks out of step.  Restarting the whole mesh needs ROADMAP
     Queue 1 item 10."""
-    check_hybrid(cfg, hybrid)
+    check_hybrid(cfg, hybrid, seq)
     device = resolve_device(device)
     dp, pp, cp, tp, ep = hybrid
     mesh = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device=device)
@@ -192,7 +208,7 @@ def train_hybrid(cfg, hybrid, *, device=None, timeout_s: float = 1800.0,
     ``device`` (NCCL, one rank per card, for ``cuda``; gloo for ``cpu``)
     and run ``train_hybrid_rank`` on each; returns each rank's
     ``{"history", "health", "log"}``."""
-    check_hybrid(cfg, hybrid)
+    check_hybrid(cfg, hybrid, kw.get("seq"))
     device = resolve_device(device)
     return launch_mesh.spawn(
         functools.partial(_hybrid_rank_main, cfg=cfg, hybrid=hybrid,
@@ -227,7 +243,8 @@ def main(argv=None):
                          "model, ep) mesh with this factorization, one "
                          "process per rank (a 4-value DP,PP,CP,TP form is "
                          "accepted with EP=1, a 3-value DP,PP,TP form with "
-                         "CP=EP=1); CP must be 1 (not ported yet)")
+                         "CP=EP=1); CP > 1 rings attention over the "
+                         "sequence shards and needs --seq divisible by CP")
     ap.add_argument("--microbatches", type=int, default=4,
                     help="pipeline microbatches per step (hybrid mesh only)")
     ap.add_argument("--schedule", default="1f1b",

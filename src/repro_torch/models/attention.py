@@ -1,11 +1,14 @@
 """GQA attention: flash kernel for train/prefill, cached for decode
 (mirrors ``repro/models/attention.py``).
 
-Train and prefill attention always go through ``kernels.ops.flash_attention``:
+Train and prefill attention go through ``kernels.ops.flash_attention``:
 the hand-written CUDA kernel on the card, its plain version on the host,
 and in train mode a backward that recomputes through ``blockwise_attention``
 (the JAX package's XLA online-softmax path, in ``kernels/ref.py`` and
-re-exported here).  Decode is a single-token
+re-exported here).  The one exception is training over a live ctx axis,
+where the sequence is sharded and attention rings over it
+(``core/ring_attention.py``, plain torch as in the reference, which
+refuses its flash kernel under ctx).  Decode is a single-token
 contraction against the KV cache in plain PyTorch, as in the JAX package.
 """
 
@@ -16,6 +19,8 @@ import math
 import torch
 
 from repro_torch.core import layers as L
+from repro_torch.core.ring_attention import (ring_attention,
+                                             ring_attention_region)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import blockwise_attention  # noqa: F401  (re-exported)
 
@@ -61,7 +66,8 @@ def decode_attention(q, k_cache, v_cache, cache_len: int):
 
 
 def attention_block(p, x, cfg, *, positions, mode, cache=None,
-                    index: int = 0, cache_len=None):
+                    index: int = 0, cache_len=None, ctx_axis=None,
+                    policy=None):
     """Full attention sub-layer: qkv proj -> rope -> attend -> out proj.
 
     x: (B, S, d).  Returns (out, kv) where kv is ``{"k", "v"}`` of this
@@ -70,6 +76,12 @@ def attention_block(p, x, cfg, *, positions, mode, cache=None,
     ``cache["k"][index]`` / ``cache["v"][index]`` (the slice of the stacked
     cache this superblock owns) IN PLACE, where the reference returns an
     updated copy, and attends over the first ``cache_len + 1`` positions.
+    ``ctx_axis``: the caller sits in a region with that live ctx axis (the
+    pipeline stage body), x is this rank's sequence shard and
+    ``positions`` are global; train mode then rings over the axis.  A
+    ``policy`` with a live ctx axis (x global, the same on every rank)
+    makes train mode ring in one region over the policy's mesh
+    (``ring_attention_region``), as the reference's GSPMD dispatch does.
     """
     hd = cfg.resolved_head_dim
     q = _split_heads(x @ p["wq"], cfg.num_heads, hd)
@@ -79,7 +91,12 @@ def attention_block(p, x, cfg, *, positions, mode, cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     kv = None
-    if mode in ("train", "prefill"):
+    if ctx_axis is not None and mode == "train":
+        out = ring_attention(q, k, v, ctx_axis, chunk=cfg.attn_chunk)
+    elif (policy is not None and policy.active_ctx_axis is not None
+          and mode == "train"):
+        out = ring_attention_region(q, k, v, policy, chunk=cfg.attn_chunk)
+    elif mode in ("train", "prefill"):
         out = ops.flash_attention(q, k, v, causal=True)
         if mode == "prefill":
             kv = {"k": k, "v": v}
@@ -105,13 +122,11 @@ def attention_block_tp(p, h, cfg, policy, *, positions):
     rank's heads, the hand-written kernel on the card and the plain version
     on the host, as in ``attention_block``.  The reference attends with
     ``blockwise_attention`` here; the two agree at Sq == Skv (the flash
-    kernel's top-left causal mask), which train mode always has.
+    kernel's top-left causal mask), which train mode always has.  Under a
+    live ctx axis S is this rank's sequence shard and attention rings over
+    it (``core/ring_attention.py``): ``positions`` must then be global.
     Train/prefill math only (no cache plumbing).
     """
-    if policy.active_ctx_axis is not None:
-        raise NotImplementedError(
-            "explicit-TP attention over a live ctx axis (ring attention) is "
-            "not ported yet (ROADMAP Queue 1 item 7, context parallelism)")
     ax = policy.model_axis
     tp = policy.model_size
     hd = cfg.resolved_head_dim
@@ -123,6 +138,10 @@ def attention_block_tp(p, h, cfg, policy, *, positions):
                      cfg.num_kv_heads // tp, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True)
+    ctx = policy.active_ctx_axis
+    if ctx is not None:
+        out = ring_attention(q, k, v, ctx, chunk=cfg.attn_chunk)
+    else:
+        out = ops.flash_attention(q, k, v, causal=True)
     out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
     return L.affine_scatter(out, p["wo"], axis=ax)

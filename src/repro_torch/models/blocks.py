@@ -94,9 +94,12 @@ def _tp_sublayer_body(p, x, positions, cfg, policy, ffn):
 
 def _tp_sublayer_apply(p, x, cfg, policy, *, positions, ffn):
     """dist_jit wrapper of the fused sublayer: logical ``Partitioned`` specs
-    at the boundary, the residual's features over the model axis.  The
-    ctx dims resolve replicated here: a live ctx axis raises in
-    ``attention_block_tp`` (ROADMAP Queue 1 item 7)."""
+    at the boundary, the residual's features over the model axis.  With a
+    live ctx axis the sequence dim also stays sharded at the boundary
+    ("ctx" resolves replicated otherwise), so the region composes ring
+    attention on ``ctx`` with the ring matmuls on ``model``; the global
+    positions are cut with it (the boundary refuses a sequence the ctx
+    axis does not divide)."""
     m = Partitioned("model")
     col = Partitioned(None, "model")   # (in, out-shard) projections
     row = Partitioned("model", None)   # (in-shard, out) projections
@@ -118,7 +121,8 @@ def _tp_sublayer_apply(p, x, cfg, policy, *, positions, ffn):
 
 
 def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
-                   index: int = 0, cache_len=None, policy=None):
+                   index: int = 0, cache_len=None, policy=None,
+                   ctx_axis=None):
     """One decoder layer: x + mixer(norm(x)); x + ffn(norm(x)).
 
     ``index`` is this superblock's position in the stack (the slice of the
@@ -129,7 +133,10 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     sublayer runs as one region over its model axis
     (``_tp_sublayer_apply``); an MoE FFN with a policy runs
     ``moe_apply``'s region.  x, positions and p are then the global
-    values, the same on every rank of the policy's mesh.
+    values, the same on every rank of the policy's mesh.  ``ctx_axis``:
+    the live ctx axis when x is this rank's sequence shard inside a region
+    (the pipeline stage body); attention then rings over it and
+    ``positions`` must be global.
     """
     mixer, ffn = layer_kinds(cfg, layer)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -140,8 +147,10 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     if mixer == "attn":
         out, kv = attention_block(subtree(p, "attn"), h, cfg,
                                   positions=positions, mode=mode, cache=cache,
-                                  index=index, cache_len=cache_len)
+                                  index=index, cache_len=cache_len,
+                                  ctx_axis=ctx_axis, policy=policy)
     else:
+        _refuse_ssm_under_ctx(ctx_axis)
         out, kv = ssm_block(subtree(p, "ssm"), h, cfg, mode=mode, cache=cache,
                             index=index)
     x = x + out
@@ -153,6 +162,15 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
             out, aux = moe_apply(h, subtree(p, "moe"), cfg, policy)
         x = x + out
     return x, kv, aux
+
+
+def _refuse_ssm_under_ctx(ctx_axis):
+    if ctx_axis is not None:
+        raise NotImplementedError(
+            f"an SSM mixer over a live ctx axis ({ctx_axis!r}) is refused: "
+            f"the reference scans each sequence shard from zero state (its "
+            f"conv and scan carry nothing across ctx ranks), which is not "
+            f"the global scan; run SSM archs with CP = 1")
 
 
 def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
@@ -174,19 +192,23 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
     residual to the full width (``all_gather_replicated``), runs the same
     dispatch on every model rank, and restricts the result back to the
     rank's own block (``shard_slice_replicated``); each such sublayer needs
-    an attention mixer.  A live ctx axis raises (ROADMAP Queue 1 item 7).
+    an attention mixer.
+
+    Under context parallelism x is the ctx rank's sequence shard,
+    ``positions`` are global, and attention rings over the ctx axis in
+    both branches (the ctx, pipe and model axes all live in the one
+    region).  An SSM mixer over a live ctx axis raises
+    ``NotImplementedError``: the reference scans each shard from zero
+    state, which is not the global scan.
     """
     explicit = policy is not None and getattr(policy, "explicit_tp", False)
-    if policy is not None and policy.active_ctx_axis is not None:
-        raise NotImplementedError(
-            "pipeline stages over a live ctx axis (ring attention) are not "
-            "ported yet (ROADMAP Queue 1 item 7, context parallelism)")
+    ctx_axis = policy.active_ctx_axis if policy is not None else None
     ep_axis = policy.active_ep_axis if policy is not None else None
     # the axes the stage's tokens shard over: the MoE aux statistics reduce
     # over exactly these, so aux is the global-microbatch value everywhere
     stat_axes = tuple(a for a in (
-        policy.active_data_axis if policy is not None else None, ep_axis)
-        if a)
+        policy.active_data_axis if policy is not None else None, ctx_axis,
+        ep_axis) if a)
     kinds = [layer_kinds(cfg, i) for i in range(cfg.block_period)]
     has_moe = any(ffn == "moe" for _, ffn in kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -217,8 +239,10 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
                     if mixer == "attn":
                         out, _ = attention_block(subtree(pp, "attn"), h, cfg,
                                                  positions=positions,
-                                                 mode="train")
+                                                 mode="train",
+                                                 ctx_axis=ctx_axis)
                     else:
+                        _refuse_ssm_under_ctx(ctx_axis)
                         out, _ = ssm_block(subtree(pp, "ssm"), h, cfg,
                                            mode="train")
                     x = x + out
@@ -236,7 +260,7 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
                 x = _tp_sublayer_body(pp, x, positions, cfg, policy, ffn)
             else:
                 x, _, _ = sublayer_apply(pp, x, cfg, i, positions=positions,
-                                         mode="train")
+                                         mode="train", ctx_axis=ctx_axis)
     return (x, aux) if has_moe else x
 
 
@@ -249,7 +273,7 @@ def superblock_init(cfg, dtype, generator, stacked: int) -> dict:
 
 
 def superblock_apply(p, x, cfg, *, positions, mode, cache=None, index: int = 0,
-                     cache_len=None):
+                     cache_len=None, policy=None):
     """Apply one superblock (period consecutive layers).
 
     cache: flat ``{"pos{i}.<leaf>": stacked cache}`` (decode) or None.
@@ -264,7 +288,7 @@ def superblock_apply(p, x, cfg, *, positions, mode, cache=None, index: int = 0,
         x, kv, aux = sublayer_apply(subtree(p, f"pos{i}"), x, cfg, i,
                                     positions=positions, mode=mode,
                                     cache=sub_cache, index=index,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, policy=policy)
         aux_total = aux_total + aux
         if kv is not None:
             new_kv.update({f"pos{i}.{k}": t for k, t in kv.items()})

@@ -172,10 +172,16 @@ def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
             x = L.shard_slice(x, policy.model_axis, x.ndim - 1)
         return x
 
+    ctx = policy.active_ctx_axis if policy is not None else None
+
     def stage_fn(p_stage, x):
         B, S_loc = x.shape[:2]
-        positions = torch.arange(S_loc, device=x.device)[None, :].expand(
-            B, S_loc)
+        # Under context parallelism x is the ctx rank's sequence shard:
+        # RoPE and the ring's causal mask key on GLOBAL positions, so they
+        # start at the rank's first row.
+        pos0 = prim.axis_index(ctx) * S_loc if ctx is not None else 0
+        positions = (pos0 + torch.arange(S_loc, device=x.device))[
+            None, :].expand(B, S_loc)
         out = pipeline_stage_body(p_stage, x, cfg, policy,
                                   positions=positions)
         if cfg.num_experts:
@@ -220,7 +226,7 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
     return cache
 
 
-def forward(params, batch, cfg, *, mode="train", cache=None):
+def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
     """Returns (logits, new_cache, aux_loss).
 
     batch: ``{"tokens": (B, S) integer}``; decode additionally takes
@@ -229,6 +235,10 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
     states after the prompt, stacked ``(n_super, ...)``; in decode it is
     ``cache``, every leaf updated in place.  ``aux_loss`` is the MoE
     load-balance loss summed over the layers (fp32; 0 without MoE).
+    ``policy`` (train mode, every rank of its mesh calling with the same
+    global batch): each sublayer runs as ``sublayer_apply`` runs it with a
+    policy.  Under a live ctx axis the regions cut the sequence and the
+    global positions together, and attention rings over the axis.
     """
     if "embeds" in batch:
         raise NotImplementedError(
@@ -254,7 +264,7 @@ def forward(params, batch, cfg, *, mode="train", cache=None):
         p_blk = {k: v[s] for k, v in layers.items()}
         x, kv, aux_s = superblock_apply(p_blk, x, cfg, positions=positions,
                                         mode=mode, cache=cache, index=s,
-                                        cache_len=cache_len)
+                                        cache_len=cache_len, policy=policy)
         kv_per_block.append(kv)
         aux = aux + aux_s
 

@@ -15,6 +15,9 @@ Function (the kernel's forward, a backward recomputed through the plain
 version) must equal the plain function's own autograd within the same pins,
 and two train steps of a small model on the card must track the host, by
 the single-device step and by the hybrid pipeline step at mesh (1, 1, 1).
+Head dim 112 (kimi-k2-1t-a32b) on both flash routes, and the ring of
+``core/ring_attention.py`` composed from four virtual ranks against the
+plain blockwise attention.
 The paper's primitives, LinearOps and memory operators pass Eq. 13 on CUDA
 tensors over NCCL, one rank per card (``launch/dist_check.py`` at its small
 shapes); the two-card case skips on a one-card machine, and the
@@ -423,6 +426,54 @@ def test_flash_tensor_core_kernel_gqa_group_4(gen):
     assert ops.ROUTE_LAUNCHES["flash_attention"]["tensor_core"] == before + 1
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True),
                                atol=FLASH_TOL[bf16], rtol=FLASH_TOL[bf16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_kimi_head_dim_112(gen, dtype):
+    """kimi-k2-1t-a32b's attention: 64 query heads of 112 over 8 KV heads,
+    causal, B 1, S 1024, on the dtype's route (the bf16 kernel lays the
+    head out at 128 columns, TMA zero-filling the last 16)."""
+    q = _randn((1, 1024, 64, 112), dtype, gen)
+    k, v = (_randn((1, 1024, 8, 112), dtype, gen) for _ in range(2))
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    before = ops.ROUTE_LAUNCHES["flash_attention"][route]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.ROUTE_LAUNCHES["flash_attention"][route] == before + 1
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+def test_virtual_ring_matches_blockwise_on_the_card(gen):
+    """Four virtual ctx ranks composed from ``ring_hop`` in the ring's hop
+    order against ``blockwise_attention`` on the whole sequence, fp32,
+    forward (2e-5) and vjp (rtol 5e-4, atol 5e-5), at a small width with a
+    ragged last chunk."""
+    from repro_torch.core import ring_attention as ring
+    B, S, H, KH, hd, cp, chunk = 2, 320, 8, 2, 64, 4, 48
+    qkv = [_randn((B, S, n, hd), torch.float32, gen).requires_grad_()
+           for n in (H, KH, KH)]
+    g = _randn((B, S, H, hd), torch.float32, gen)
+    s = S // cp
+
+    def virtual(q, k, v):
+        qs, ks, vs = (t.split(s, dim=1) for t in (q, k, v))
+        outs = []
+        for r in range(cp):
+            carry = ring.ring_init(qs[r])
+            for t in range(cp):
+                src = (r - t) % cp
+                carry = ring.ring_hop(carry, qs[r], ks[src], vs[src],
+                                      q_pos0=r * s, kv_base=src * s,
+                                      chunk=chunk)
+            outs.append(ring.ring_finish(carry, q.dtype))
+        return torch.cat(outs, dim=1)
+
+    got = virtual(*qkv)
+    want = ref.blockwise_attention(*qkv, chunk=chunk)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    for a, b in zip(torch.autograd.grad(got, qkv, g),
+                    torch.autograd.grad(want, qkv, g)):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-4)
 
 
 def test_moe_ffn_full_width_card_matches_host(gen):

@@ -24,8 +24,9 @@ the same carried-over parameters and data.
   that rank out of step with its peers.
 - the CLI's ``--device cpu --hybrid-mesh 2,2,1,2,1`` run (its own 8
   spawned ranks), reduced jamba at ``2,1,1,1,4`` and reduced llama4 at
-  ``1,1,1,2,4`` (MoE over a live ep axis), and its exits for CP,
-  ``--elastic`` and tied embeddings.
+  ``1,1,1,2,4`` (MoE over a live ep axis), and its exits for a sequence
+  CP does not divide, SSM mixers under CP > 1, ``--elastic`` and tied
+  embeddings.
 """
 
 import functools
@@ -501,8 +502,9 @@ def test_hybrid_cli_runs_moe_on_the_host(capsys, arch, mesh):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--hybrid-mesh", "1,1,2,1"], "item 7"),
-    (["--arch", "jamba-v0.1-52b", "--hybrid-mesh", "1,1,2,1,2"], "item 7"),
+    (["--hybrid-mesh", "1,1,3,1", "--seq", "16"], "not divisible by CP=3"),
+    (["--arch", "jamba-v0.1-52b", "--hybrid-mesh", "1,1,2,1,2"],
+     "zero state"),
     (["--hybrid-mesh", "1,1,1", "--elastic"], "item 10"),
     (["--hybrid-mesh", "1,2"], "DP,PP,CP,TP,EP"),
 ])

@@ -27,7 +27,8 @@ for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
              "repro_torch.core.overlap", "repro_torch.core.layers",
              "repro_torch.models.lenet", "repro_torch.core.pipeline",
              "repro_torch.launch.specs", "repro_torch.analysis",
-             "repro_torch.analysis.spaces"):
+             "repro_torch.analysis.spaces",
+             "repro_torch.core.ring_attention"):
     assert name in names, name
 assert len(names) > 20, names
 bad = sorted(m for m in sys.modules

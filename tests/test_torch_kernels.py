@@ -72,6 +72,8 @@ def test_attention_ref_matches_jax_ref(B, S, H, KH, hd, dtype, causal):
     (1, 128, 4, 4, 64, "float32", True),
     (2, 256, 4, 2, 64, "bfloat16", False),
     (1, 128, 8, 1, 32, "float32", True),
+    (1, 128, 8, 1, 112, "float32", True),     # kimi-k2's head dim
+    (1, 128, 8, 1, 112, "bfloat16", True),
 ])
 def test_attention_ref_matches_pallas_interpret(B, S, H, KH, hd, dtype,
                                                 causal):

@@ -292,9 +292,10 @@ def test_decode_attention_matches_jax():
 
 def test_unported_families_raise():
     """What the port still lacks raises naming its ROADMAP item: the
-    ``embeds`` frontends (Queue 1, "Serving, the rest") and a pipeline stage
-    over a live ctx axis (item 7, ring attention).  MoE no longer raises:
-    kimi's and jamba's parameters initialise."""
+    ``embeds`` frontends (Queue 1, "Serving, the rest").  A pipeline stage
+    over a live ctx axis rings attention now, and refuses an SSM mixer
+    there (the reference scans each shard from zero state).  MoE no longer
+    raises: kimi's and jamba's parameters initialise."""
     cfg = configs.reduced(configs.get_config("glm4-9b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="Serving, the rest"):
@@ -308,11 +309,13 @@ def test_unported_families_raise():
 
     pol = Policy.for_mesh(Mesh())
     assert pol.active_ctx_axis == "ctx"
-    p_stage = {k[len("blocks."):]: v for k, v in params.items()
+    jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
+    jp = init_params(jamba, torch.Generator().manual_seed(0), "cpu")
+    p_stage = {k[len("blocks."):]: v for k, v in jp.items()
                if k.startswith("blocks.")}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        blocks.pipeline_stage_body(p_stage, torch.zeros(1, 4, cfg.d_model),
-                                   cfg, pol, positions=None)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        blocks.pipeline_stage_body(p_stage, torch.zeros(1, 4, jamba.d_model),
+                                   jamba, pol, positions=None)
     for arch in ("kimi-k2-1t-a32b", "jamba-v0.1-52b", "mamba2-370m"):
         cfg = configs.reduced(configs.get_config(arch))
         own = init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -122,7 +122,7 @@ def _np(t):
     return np.asarray(jnp.asarray(t).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 112, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Sq,Skv,H,KH", [
     (1, 128, 128, 4, 2),

@@ -330,7 +330,8 @@ def test_checkpoints_are_not_ported_yet():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--hybrid-mesh", "1,1,2,1"], "item 7"), (["--elastic"], "item 10"),
+    (["--hybrid-mesh", "1,1,2,1", "--ckpt-dir", "x"], "item 10"),
+    (["--elastic"], "item 10"),
     (["--fault-plan", "poison=1"], "item 10"), (["--ckpt-dir", "x"],
                                                 "item 10")])
 def test_unported_cli_flags_exit_naming_their_item(flag, item):

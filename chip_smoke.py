@@ -5,7 +5,8 @@ card and hold each hand-written kernel against its plain PyTorch version.
 
 Three paths are served, glm4-9b (dense attention), mamba2-370m (SSM) and
 jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), and glm4-9b is
-trained, also with its sequence over a ctx axis (ring attention).
+trained, also with its sequence over a ctx axis (ring attention), and
+through checkpoints, injected faults and a mesh shrink.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -156,6 +157,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (no flash launch; RMSNorm as phase 11 counts it): step time, tokens/s,
    peak memory a rank; on one card each mesh records that it skipped and
    why.  One line ``{"ring": {...}}``.
+14. resilience: checkpoints, fault injection and elastic recovery
+   (``checkpoint/ckpt.py``, ``resilience/inject.py``, ``train/loop.py``),
+   checkpoints under the gitignored ``build/ckpt`` (the filesystem and its
+   free bytes printed first; too few raise).  (a) Phase 8's cell (glm4-9b
+   at full width cut to 8 layers, bf16 params and fp32 AdamW moments,
+   28.7 GB; B 4, S 1024): 2 steps, ``save``, ``restore_latest_verified``
+   beside the live state, the snapshot, crc32, writes, reads with their
+   checks and host-to-device copies timed apart; the restored state
+   bitwise the saved one, and step 3 from each (one step run twice from
+   the same state) bitwise equal in loss and every leaf.  (b) Cut to 2
+   layers and a vocabulary of 8192 (4.75 GB; the machine's disk takes 45
+   GiB of writes a call), 5 steps through ``launch.train.train`` with
+   ``fault_plan="poison=3,crash=4,corrupt=bitflip"``, async saves every 2
+   steps, keep 2: step 3 skipped, the crash at 4 damaging step 4's
+   checkpoint, its quarantine, the restart from step 2; final loss and
+   every leaf bitwise the fault-free run's, health restarts 1,
+   quarantined 1, skipped 1, the counts set to 0 just before and read
+   just after (L flash and 2L + 1 norms a step executed).  (c) Where 4
+   cards exist, ``train_hybrid_rank`` at (dp, pp, cp, tp, ep) = (2, 1, 1,
+   2, 1), B 8, M 2, with ``elastic`` and ``shrink=3:data``: ranks 2-3
+   leave, ranks 0-1 finish at (1, 1, 1, 2, 1) with virtual_dp 2, bitwise
+   the clean 4-card run's; on one card it records that it skipped.  One
+   line ``{"resilience": {...}}`` a part.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -173,6 +197,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -187,6 +212,7 @@ import lenet5_distributed_torch as lenet_example  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
                                  reduced)
 from repro_torch.core import primitives as prim  # noqa: E402
@@ -316,6 +342,20 @@ RING_TRAIN = {"layers": 8, "batch": 4, "seq": 4096, "micro": 4, "steps": 5}
 # 7168): the head dim 112 kernels at its prefill shape, and its full-width
 # attention sub-layer card (bf16) vs host (fp32)
 KIMI_ATTN = {"batch": 1, "seq": 1024}
+# Phase 14: (a) phase 8's cell, (b) the chaos heal at depth 2, (c) the
+# elastic shrink on 4 cards; checkpoints under the gitignored build/.
+CKPT_ROOT = ROOT / "build" / "ckpt"
+# The one-card machine takes at most 45 GiB of disk writes in one call,
+# deleted files included: (a) writes 28.7 GB once, so (b) keeps glm4-9b's
+# layer widths and depth 2 but cuts its vocabulary (embedding and LM head
+# are 12.4 of its 16.5 GB) and runs the shortest course that falls back
+# past a corrupt checkpoint: three saves of 4.75 GB.
+RESIL = {"batch": 4, "seq": 1024, "layers_a": 8, "layers_b": 2,
+         "vocab_b": 8192, "steps_b": 5,
+         "plan": "poison=3,crash=4,corrupt=bitflip", "ckpt_every": 2,
+         "keep": 2}
+RESIL_MESH = {"full": (2, 1, 1, 2, 1), "plan": "shrink=3:data", "batch": 8,
+              "micro": 2, "steps": 4, "ckpt_every": 2}
 
 
 def expect_routes(name, dtype, before):
@@ -2420,6 +2460,293 @@ def phase_ring(smi):
     return {f"ring ctx train bf16 {GLM}": one["ctx_train"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: checkpoints, fault injection and elastic recovery.
+# ---------------------------------------------------------------------------
+
+def free_pinned_host_memory():
+    """Give the page-locked host blocks that torch caches after a
+    checkpoint's snapshot back to the system (host RAM is 96 GB on the
+    one-card machine, and each phase's snapshots are tens of GB)."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def disk_check(path, need, what):
+    """Print the filesystem of ``path`` and its free bytes; raise when
+    fewer than ``need`` are free (a checkpoint never skips for want of
+    room)."""
+    path.mkdir(parents=True, exist_ok=True)
+    usage = shutil.disk_usage(path)
+    fs = subprocess.run(["df", "-T", str(path)], capture_output=True,
+                        text=True, timeout=60).stdout.splitlines()[-1]
+    emit(phase="resilience_disk", what=what, path=str(path), df=fs,
+         free_bytes=usage.free, need_bytes=need)
+    if usage.free < need:
+        raise AssertionError(f"{what}: {usage.free} bytes free under {path},"
+                             f" {need} needed")
+
+
+def state_bytes(state) -> int:
+    _, leaves = ckpt_lib._tree_paths(state)
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
+
+
+def state_diff(a, b) -> list:
+    """Keys of the leaves of two state trees that differ in any bit."""
+    ka, la = ckpt_lib._tree_paths(a)
+    kb, lb = ckpt_lib._tree_paths(b)
+    if ka != kb:
+        return ["<keys>"]
+    return [k for k, x, y in zip(ka, la, lb)
+            if (not torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x != y)]
+
+
+def io_rates():
+    """The last save's and restore's times and rates (GB/s, 1e9 bytes)."""
+    out = {}
+    for part, stats in ckpt_lib.IO_STATS.items():
+        out[part] = dict(stats)
+        for key, secs in stats.items():
+            if key.endswith("_s") and secs > 0:
+                out[part][key[:-2] + "_gbps"] = stats["bytes"] / secs / 1e9
+    return out
+
+
+def resilience_roundtrip():
+    """(a): phase 8's cell (glm4-9b at full width, 8 layers, bf16 params
+    and fp32 AdamW moments, B 4, S 1024): 2 steps, ``save``, then
+    ``restore_latest_verified`` onto the card beside the live state; the
+    restored state bitwise the saved one; step 3 from each of the two
+    (the same step run twice from the same state) bitwise equal in loss
+    and every leaf.  Launch counts set to 0 just before and read after."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=RESIL["layers_a"])
+    B, S = RESIL["batch"], RESIL["seq"]
+    opt = make_optimizer(cfg.optimizer, total_steps=TRAIN["steps"],
+                         base_lr=TRAIN["lr"])
+    step = build_train_step(dataclasses.replace(cfg, grad_accum=1), opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    d = CKPT_ROOT / "roundtrip"
+    shutil.rmtree(d, ignore_errors=True)
+    ops.reset_launches()
+    state = init_train_state(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), opt)
+    for i in range(2):
+        state, _ = step(state, data.batch(i))
+    torch.cuda.synchronize()
+    nbytes = state_bytes(state)
+    disk_check(CKPT_ROOT, int(1.05 * nbytes), "(a) one checkpoint")
+    t0 = time.perf_counter()
+    ckpt_lib.save(str(d), 2, state, keep=1)
+    save_s = time.perf_counter() - t0
+    saved = io_rates()
+    free_pinned_host_memory()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    restored, at, quarantined = ckpt_lib.restore_latest_verified(
+        str(d), like=state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    loaded = io_rates()["restore"]
+    differ_restored = state_diff(state, restored)
+    state, m_live = step(state, data.batch(2))
+    restored, m_restored = step(restored, data.batch(2))
+    torch.cuda.synchronize()
+    snap = snapshot()
+    differ_step3 = state_diff(state, restored)
+    losses = [repr(float(m_live["loss"])), repr(float(m_restored["loss"]))]
+    out = {"arch": GLM, "layers": cfg.num_layers, "cut": "depth 40 -> 8",
+           "batch": B, "seq": S, "params": sum(
+               p.numel() for p in state["params"].values()),
+           "state_bytes": nbytes, "save_s": save_s, "save": saved["save"],
+           "write": saved["write"], "restore_s": restore_s,
+           "restore": loaded, "restored_step": at,
+           "differ_restored": differ_restored, "step3_losses": losses,
+           "differ_step3": differ_step3,
+           "peak_mem_bytes_restore_and_step": torch.cuda.max_memory_allocated(),
+           "launches": snap}
+    del state, restored
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_pinned_host_memory()
+    if (at != 2 or quarantined or differ_restored or differ_step3
+            or losses[0] != losses[1]):
+        raise AssertionError(f"resilience (a): {out}")
+    want = {"flash_attention": 4 * cfg.num_layers,
+            "rmsnorm": 4 * (2 * cfg.num_layers + 1), "ssd_scan": 0}
+    if snap["launches"] != want:
+        raise AssertionError(f"resilience (a): launches {snap}, expected "
+                             f"{want}")
+    return out
+
+
+def resilience_chaos():
+    """(b): glm4-9b's layer widths, 2 layers, a vocabulary of 8192
+    (``RESIL``), through ``launch.train.train`` with ``--fault-plan
+    poison=3,crash=4,corrupt=bitflip``, async saves every 2 steps, keep 2:
+    step 3 skipped, the crash at 4 damaging step 4's checkpoint (which
+    holds the skip),
+    its quarantine, the restart from step 2 and a clean replay; final loss
+    and every leaf bitwise the fault-free run's (run first, without
+    checkpoints); launch counts set to 0 just before the faulted run and
+    read just after: the layers' flash and 2L + 1 norms a step executed."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=RESIL["layers_b"],
+                              vocab_size=RESIL["vocab_b"])
+    kw = dict(steps=RESIL["steps_b"], batch=RESIL["batch"],
+              seq=RESIL["seq"], lr=TRAIN["lr"], seed=0, device="cuda")
+    t0 = time.perf_counter()
+    golden, ghist = launch_train.train(cfg, logger=lambda line: None, **kw)
+    golden_s = time.perf_counter() - t0
+    nbytes = state_bytes(golden)
+    d = CKPT_ROOT / "chaos"
+    shutil.rmtree(d, ignore_errors=True)
+    disk_check(CKPT_ROOT, int(3.1 * nbytes),
+               "(b) three checkpoints at once (keep 2 + one being written)")
+    logs = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = launch_train.train(
+        cfg, ckpt_dir=str(d), ckpt_every=RESIL["ckpt_every"],
+        keep=RESIL["keep"], fault_plan=RESIL["plan"], logger=logs.append,
+        **kw)
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    snap = snapshot()
+    rates = io_rates()
+    differ = state_diff(state, golden)
+    listing = sorted(os.listdir(d))
+    out = {"arch": GLM, "layers": cfg.num_layers,
+           "cut": f"depth 40 -> 2, vocabulary 151552 -> {cfg.vocab_size}",
+           "batch": RESIL["batch"], "seq": RESIL["seq"],
+           "steps": RESIL["steps_b"], "plan": RESIL["plan"],
+           "ckpt_every": RESIL["ckpt_every"], "keep": RESIL["keep"],
+           "params": sum(p.numel() for p in state["params"].values()),
+           "state_bytes": nbytes, "golden_s": golden_s, "chaos_s": chaos_s,
+           "steps_executed": [r["step"] for r in hist],
+           "skipped": [r["skipped"] for r in hist],
+           "final_loss": [repr(hist[-1]["loss"]), repr(ghist[-1]["loss"])],
+           "differ": differ, "health": hist.health, "listing": listing,
+           "last_io": rates, "launches": snap, "log": logs}
+    del state, golden
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_pinned_host_memory()
+    health = hist.health
+    if (differ or out["final_loss"][0] != out["final_loss"][1]
+            or (health["restarts"], health["quarantined_checkpoints"],
+                health["skipped_steps"]) != (1, 1, 1)
+            or out["steps_executed"] != [0, 1, 2, 3, 2, 3, 4]):
+        raise AssertionError(f"resilience (b): {out}")
+    n = len(hist)
+    want = {"flash_attention": cfg.num_layers * n,
+            "rmsnorm": (2 * cfg.num_layers + 1) * n, "ssd_scan": 0}
+    if snap["launches"] != want:
+        raise AssertionError(f"resilience (b): launches {snap}, expected "
+                             f"{want}")
+    return out
+
+
+def resilience_mesh_rank(rank, world_mesh):
+    """(c) on this rank of 4 cards: the clean run at (dp, pp, cp, tp, ep)
+    = (2, 1, 1, 2, 1) through ``launch.train.train_hybrid_rank``, then the
+    same run with ``--elastic``, checkpoints every 2 steps and a data-axis
+    device loss at step 3: ranks 2-3 leave, ranks 0-1 re-form the world at
+    (1, 1, 1, 2, 1) with virtual_dp 2, reshard step 2's checkpoint and
+    finish; their final loss and every parameter against the clean run's
+    (the same blocks on the same ranks)."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=RESIL["layers_b"])
+    kw = dict(steps=RESIL_MESH["steps"], batch=RESIL_MESH["batch"],
+              seq=RESIL["seq"], microbatches=RESIL_MESH["micro"],
+              lr=TRAIN["lr"], seed=0, device="cuda")
+    state, hist, _ = launch_train.train_hybrid_rank(
+        cfg, RESIL_MESH["full"], logger=lambda line: None, **kw)
+    clean = {"loss": repr(hist[-1]["loss"]),
+             "params": {k: v.cpu() for k, v in state["params"].items()}}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = CKPT_ROOT / "mesh"
+    if rank == 0:      # two checkpoints: bf16 params, fp32 AdamW moments
+        shutil.rmtree(d, ignore_errors=True)
+        disk_check(CKPT_ROOT, int(2.1 * 10 * cfg.param_count()),
+                   "(c) checkpoints")
+    torch.distributed.barrier()
+    logs = []
+    t0 = time.perf_counter()
+    state, hist, _ = launch_train.train_hybrid_rank(
+        cfg, RESIL_MESH["full"], ckpt_dir=str(d),
+        ckpt_every=RESIL_MESH["ckpt_every"], fault_plan=RESIL_MESH["plan"],
+        elastic=True, logger=logs.append, **kw)
+    out = {"rank": rank, "left": state is None, "health": hist.health,
+           "seconds": time.perf_counter() - t0, "io": io_rates(),
+           "steps_executed": [r["step"] for r in hist], "log": logs}
+    if state is None:
+        return out
+    out["final_loss"] = [repr(hist[-1]["loss"]), clean["loss"]]
+    out["differ"] = [k for k, v in state["params"].items()
+                     if not torch.equal(v.cpu(), clean["params"][k])]
+    out["world"] = torch.distributed.get_world_size()
+    torch.distributed.barrier()
+    if rank == 0:
+        shutil.rmtree(d)
+    return out
+
+
+def resilience_meshes(smi):
+    """(c) where 4 cards exist; on fewer it records that it skipped."""
+    cards = torch.cuda.device_count()
+    world = math.prod(RESIL_MESH["full"])
+    if world > cards:
+        return {"skipped": f"mesh {RESIL_MESH['full']} needs {world} cards, "
+                f"this machine has {cards}"}
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(resilience_mesh_rank, world, device="cuda",
+                              timeout_s=900)
+    out = {"nvidia_smi": smi, "mesh": RESIL_MESH, "ranks": ranks,
+           "seconds": time.perf_counter() - t0}
+    survivors = [r for r in ranks if not r["left"]]
+    if ([r["rank"] for r in survivors] != [0, 1]
+            or any(r["differ"] or r["final_loss"][0] != r["final_loss"][1]
+                   or r["world"] != 2 or r["health"]["mesh_shrinks"] != 1
+                   for r in survivors)):
+        raise AssertionError(f"resilience (c): {out}")
+    return out
+
+
+def phase_resilience(smi):
+    """Phase 14, ``resilience``: (a) the round trip at phase 8's cell, (b)
+    the chaos heal at glm4-9b's layer widths, (c) the elastic shrink on 4 cards, each
+    printed as one line ``{"resilience": {"part": ..., ...}}``; returns the
+    launch counts of (a) and (b) by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit(phase="resilience_host", free=subprocess.run(
+        ["free", "-g"], capture_output=True, text=True,
+        timeout=60).stdout.splitlines())
+    res = {}
+    for part, run_part in (("a", resilience_roundtrip),
+                           ("b", resilience_chaos),
+                           ("c", functools.partial(resilience_meshes, smi))):
+        t1 = time.perf_counter()
+        res[part] = run_part()
+        print(json.dumps({"resilience": {
+            "part": part, "kind": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "seconds": time.perf_counter() - t1,
+            **res[part]}}), flush=True)
+    emit(phase="resilience", seconds=time.perf_counter() - t0)
+    return {f"resilience roundtrip bf16 {GLM}": res["a"]["launches"],
+            f"resilience chaos bf16 {GLM}": res["b"]["launches"]}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2438,6 +2765,7 @@ def main():
     by_path.update(phase_hybrid(smi))
     by_path.update(phase_moe(smi))
     by_path.update(phase_ring(smi))
+    by_path.update(phase_resilience(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

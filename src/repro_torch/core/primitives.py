@@ -286,18 +286,23 @@ def psum_(tensors, axes):
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def mesh_all_reduce_(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def mesh_all_reduce_(x: torch.Tensor, op: str = "sum", *,
+                     replica: bool = False) -> torch.Tensor:
     """In place and outside autograd: ``x`` reduced (``"sum"`` or
     ``"max"``) over every rank of the current mesh by ONE all-reduce on
     the mesh's own group, the reference's ``psum``/``pmax`` over all of
     ``mesh.axis_names``.  The mesh carries that group as
     ``all_ranks_group`` (``launch.mesh`` makes it for the pipeline and
-    hybrid meshes)."""
-    group = getattr(current_mesh(), "all_ranks_group", None)
+    hybrid meshes).  ``replica=True`` reduces over this rank's data
+    replica only (every axis but ``data``, ``replica_group``): a value the
+    replicas hold alike then comes out the same, bit for bit, whatever
+    the data axis's size."""
+    name = "replica_group" if replica else "all_ranks_group"
+    group = getattr(current_mesh(), name, None)
     if group is None:
-        raise ValueError("mesh_all_reduce_: the current mesh has no group of "
-                         "all its ranks (build it with launch.mesh's "
-                         "make_pipeline_mesh or make_hybrid_mesh)")
+        raise ValueError(f"mesh_all_reduce_: the current mesh has no "
+                         f"{name} (build it with launch.mesh's "
+                         f"make_pipeline_mesh or make_hybrid_mesh)")
     dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
     return x
 

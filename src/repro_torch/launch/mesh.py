@@ -17,6 +17,20 @@ calls each one in the same order (creating a process group is collective).
 Each axis's groups get the world's timeout, so a hang fails instead of
 waiting out torch's default.
 
+After the loss of a mesh slice (the elastic supervisor, DESIGN §10) the
+survivors build their degraded mesh without the lost ranks.
+``shrink_world`` re-forms the world over the survivors, in survivor order,
+rather than creating the new groups with ``new_group(...,
+use_local_synchronization=True)`` inside the old world: under NCCL with
+the card bound at ``init_process_group`` (eager init) a new group is split
+from the world's communicator, a collective of every rank of the world,
+lost ones included, so a local-synchronization group of the survivors
+would wait for ranks that are gone; and the old world's own barrier and
+default group would keep naming them.  The re-formed world rendezvouses on
+the first world's store (kept alive by its master, rank 0, which always
+survives: the lost slice is the last one), under a new prefix, and waits
+until every lost rank has left before it forms.
+
 ``spawn`` runs a function on every rank of a fresh world: the counterpart
 of ``--xla_force_host_platform_device_count`` for the tests, and of one
 process per card for ``chip_smoke.py``.  ``shard_map`` needs none.
@@ -29,7 +43,6 @@ import math
 import multiprocessing
 import os
 import queue as queue_mod
-import socket
 import time
 import traceback
 
@@ -44,6 +57,7 @@ from ..tree import tree_map
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 _TIMEOUT: list = []   # the world's process-group timeout, set by init_world
+_WORLD: dict = {}     # the first world's store and this process's card
 
 
 def _device_type(device) -> str:
@@ -62,23 +76,71 @@ def _check_world(world: int, device_type: str):
             f"on one card)")
 
 
-def init_world(rank: int, world: int, *, device="cuda", port: int,
+def init_world(rank: int, world: int, *, device="cuda", port,
                timeout_s: float = 300.0):
-    """Join this process to a world of ``world`` ranks at
-    ``tcp://127.0.0.1:port``, NCCL for ``cuda`` (rank r on card r), gloo
-    for ``cpu``, every group with a ``timeout_s`` timeout."""
+    """Join this process to a world of ``world`` ranks, NCCL for ``cuda``
+    (rank r on card r), gloo for ``cpu``, every group with a ``timeout_s``
+    timeout.  ``port`` is a shared ``multiprocessing.Value`` holding 0
+    (``spawn``'s): rank 0 binds a free port for the world's store and
+    publishes it there, and the other ranks wait for it, so no other
+    process can take the port between its choice and its bind."""
     device_type = _device_type(device)
     _check_world(world, device_type)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, world, True, timeout=timeout,
+                              wait_for_workers=False)
+        port.value = store.port
+    else:
+        deadline = time.monotonic() + timeout_s
+        while not port.value:
+            if time.monotonic() > deadline:
+                raise TimeoutError("rank 0 published no store port")
+            time.sleep(0.01)
+        store = dist.TCPStore("127.0.0.1", port.value, world, False,
+                              timeout=timeout)
+    _WORLD.clear()
+    _WORLD.update(store=store, card=rank, generation=0)
+    _join(store, rank, world, device_type, timeout)
+
+
+def _join(store, rank: int, world: int, device_type: str, timeout):
     kw = {}
     if device_type == "cuda":
-        torch.cuda.set_device(rank)
-        kw["device_id"] = torch.device("cuda", rank)
-    timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(BACKENDS[device_type],
-                            init_method=f"tcp://127.0.0.1:{port}",
+        torch.cuda.set_device(_WORLD["card"])
+        kw["device_id"] = torch.device("cuda", _WORLD["card"])
+    dist.init_process_group(BACKENDS[device_type], store=store,
                             world_size=world, rank=rank, timeout=timeout,
                             **kw)
     _TIMEOUT[:] = [timeout]
+
+
+def shrink_world(ranks) -> int | None:
+    """Re-form the world over ``ranks`` (ranks of the current world, in
+    the order they take in the new one); every rank of the current world
+    calls this together.  A rank left out destroys its process groups,
+    signals that it has left, and gets None: it takes no part in the new
+    world.  The others wait until every left-out rank has signalled, then
+    join the new world (each on its own card) and get their new rank.  The
+    current world's groups, and every mesh built on them, are gone."""
+    ranks = [int(r) for r in ranks]
+    me, world = dist.get_rank(), dist.get_world_size()
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    gen = _WORLD["generation"] + 1
+    prefix = f"shrink{gen}/"
+    dist.barrier()
+    dist.destroy_process_group()
+    store = _WORLD["store"]
+    if me not in ranks:
+        store.set(f"{prefix}left/{me}", "1")
+        return None
+    store.wait([f"{prefix}left/{r}" for r in range(world)
+                if r not in ranks])
+    _WORLD["generation"] = gen
+    rank = ranks.index(me)
+    _join(dist.PrefixStore(prefix, store), rank, len(ranks), device_type,
+          _TIMEOUT[0])
+    return rank
 
 
 def _make_mesh(shape, axes, devices=None, *, device=None,
@@ -90,8 +152,10 @@ def _make_mesh(shape, axes, devices=None, *, device=None,
     ``all_ranks_group`` also makes one group of all the mesh's ranks, kept
     on the mesh as ``all_ranks_group``, for the one all-reduce over the
     whole mesh of ``primitives.mesh_all_reduce_`` (the pipeline's guard
-    flag and the hybrid step's clip norm); a 1-D mesh uses its one axis
-    group."""
+    flag); a 1-D mesh uses its one axis group.  With a ``data`` axis of
+    size > 1 it also makes one group per data replica (the ranks of one
+    data coordinate), kept as ``replica_group`` (the hybrid step's clip
+    norm); otherwise ``replica_group`` is ``all_ranks_group``."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
@@ -121,6 +185,15 @@ def _make_mesh(shape, axes, devices=None, *, device=None,
         groups.append(mine)
     flat = (dist.new_group(grid.ravel().tolist(), timeout=timeout)
             if all_ranks_group and len(shape) > 1 else None)
+    replica = None
+    if all_ranks_group and "data" in axes and len(shape) > 1:
+        d = axes.index("data")
+        if shape[d] > 1:
+            for i in range(shape[d]):
+                sub = np.take(grid, i, axis=d).ravel().tolist()
+                group = dist.new_group(sub, timeout=timeout)
+                if me in sub:
+                    replica = group
     if me not in grid:
         return None
     # Under NCCL, when ``batch_isend_irecv`` is a group's first collective
@@ -137,6 +210,8 @@ def _make_mesh(shape, axes, devices=None, *, device=None,
                                  mesh_dim_names=axes)
     if all_ranks_group:
         mesh.all_ranks_group = groups[0] if flat is None else flat
+        mesh.replica_group = mesh.all_ranks_group if replica is None \
+            else replica
     return mesh
 
 
@@ -251,12 +326,6 @@ def shrink_factorization(factorization, lost_axis: str):
 # spawn: one process per rank.
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _to_numpy(tree):
     return tree_map(lambda t: t.detach().cpu().numpy()
                     if isinstance(t, torch.Tensor) else t, tree)
@@ -275,7 +344,8 @@ def _rank_main(rank, world, fn, device_type, timeout_s, port, results):
     except BaseException:   # noqa: BLE001 — reported to the parent
         results.put((rank, False, traceback.format_exc()))
         return
-    dist.destroy_process_group()
+    if dist.is_initialized():    # a rank left out by shrink_world is not
+        dist.destroy_process_group()
 
 
 def spawn(fn, world: int, *, device="cuda",
@@ -295,7 +365,7 @@ def spawn(fn, world: int, *, device="cuda",
     _check_world(world, device_type)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    port = ctx.Value("i", 0)
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, fn, device_type, timeout_s, port,
                                results), daemon=True)

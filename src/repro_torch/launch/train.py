@@ -34,8 +34,22 @@ axis:
 ``--device cuda`` runs one NCCL rank per card (the world may not exceed
 the card count); ``--device cpu`` spawns gloo ranks.  ``train_hybrid_rank``
 is the per-rank path for a caller already inside a world (``chip_smoke.py``).
-Not ported yet, each exits naming its ROADMAP Queue 1 item:
-``--elastic``, ``--fault-plan`` and ``--ckpt-dir`` (item 10).  CP > 1
+
+The loop is the fault-tolerant one of ``train/loop.py``: atomic verified
+checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir`` and resume
+from the newest verified one, and ``--fault-plan`` turns on the
+deterministic chaos harness (``resilience/inject.py``), e.g.
+``--fault-plan poison=5,crash=9,corrupt=bitflip``: step 5's gradients are
+NaN-poisoned (the guard skips), step 9 crashes after bit-flipping the
+newest checkpoint, and the supervisor quarantines it, falls back and
+resumes.  ``--elastic`` (with ``--hybrid-mesh``) survives the loss of a
+mesh slice (``shrink=step:axis`` in the plan): the lost ranks leave, the
+survivors shrink the mesh, reshard the newest verified checkpoint and fold
+lost data parallelism into ``virtual_dp``.  On the hybrid path every rank
+runs the same plan, so the supervisor restarts on the faults every rank
+sees at the same step (the plan's crash and device loss, a non-finite
+streak, an agreed corrupt checkpoint); any other fault ends the run on
+every rank (``launch.mesh.spawn`` stops them).  CP > 1
 refuses SSM mixers (the reference scans each sequence shard from zero
 state) and a ``--seq`` it does not divide.  Explicit
 TP (TP > 1) takes MoE FFNs only behind attention mixers, as the
@@ -52,6 +66,7 @@ import math
 import sys
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.data import DataConfig, PrefetchIterator, SyntheticLM
@@ -61,32 +76,44 @@ from repro_torch.models import init_params, init_pipeline_params
 from repro_torch.models.convert import to_rank_params
 from repro_torch.models.model import _check_pipelineable
 from repro_torch.optim import make_optimizer
+from repro_torch.resilience import (DeviceLossError, FaultInjector,
+                                    FaultPlan, InjectedCrash, nan_grad_hook)
 from repro_torch.sharding import Policy
-from repro_torch.train import (LoopConfig, build_hybrid_train_step,
-                               build_train_step, init_train_state,
+from repro_torch.train import (LoopConfig, NonFiniteStreakError,
+                               build_hybrid_train_step, build_train_step,
+                               elastic_restart_on_failure,
+                               hybrid_param_parts, init_train_state,
                                restart_on_failure)
 
-NOT_PORTED = {
-    "elastic": "--elastic needs checkpoints and the mesh-shrinking "
-               "supervisor (ROADMAP Queue 1 item 10)",
-    "fault_plan": "--fault-plan needs resilience/inject.py (ROADMAP Queue 1 "
-                  "item 10)",
-    "ckpt_dir": "--ckpt-dir needs checkpoint/ckpt.py (ROADMAP Queue 1 "
-                "item 10)",
-}
+def _plan(fault_plan):
+    return (FaultPlan.parse(fault_plan) if isinstance(fault_plan, str)
+            else fault_plan)
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
           seed: int = 0, device=None, max_restarts: int = 3,
-          rollback_after_skips: int | None = None, logger=print):
-    """Train ``cfg`` from a random init for ``steps`` steps; returns
-    ``(state, history)`` (``train/loop.py``)."""
+          rollback_after_skips: int | None = None, ckpt_dir=None,
+          ckpt_every: int = 50, keep: int = 3, fault_plan=None,
+          logger=print):
+    """Train ``cfg`` from a random init (or the newest verified checkpoint
+    in ``ckpt_dir``) for ``steps`` steps, saving every ``ckpt_every``
+    steps and keeping ``keep``; ``fault_plan`` (a ``FaultPlan`` or its CLI
+    string) injects its faults.  Returns ``(state, history)``
+    (``train/loop.py``)."""
     device = resolve_device(device)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed))
     opt = make_optimizer(cfg.optimizer, total_steps=steps, base_lr=lr)
     cfg = dataclasses.replace(cfg, grad_accum=1)
     step = build_train_step(cfg, opt)
+    plan = _plan(fault_plan)
+    if plan is not None:
+        # the poisoned sibling is the same step with the gradient fault
+        # hook built in; the injector chooses between them on the host
+        poisoned = build_train_step(
+            cfg, opt, fault_hook=nan_grad_hook(plan.poison_value))
+        step = FaultInjector(plan, step, poisoned_step_fn=poisoned,
+                             ckpt_dir=ckpt_dir)
 
     def make_iter(start):
         return PrefetchIterator(data, start_step=start)
@@ -98,7 +125,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
         logger(f"{cfg.name}: {n/1e6:.1f}M params, device={device}")
         return init_train_state(cfg, params, opt)
 
-    loop_cfg = LoopConfig(total_steps=steps, log_every=10,
+    loop_cfg = LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                          ckpt_every=ckpt_every, keep=keep, log_every=10,
                           rollback_after_skips=rollback_after_skips)
     return restart_on_failure(make_state, step, make_iter, loop_cfg,
                               max_restarts=max_restarts, logger=logger)
@@ -141,65 +169,102 @@ def train_hybrid_rank(cfg, hybrid, *, steps: int, batch: int, seq: int,
                       lr: float = 1e-3, seed: int = 0, device=None,
                       max_restarts: int = 3,
                       rollback_after_skips: int | None = None,
+                      ckpt_dir=None, ckpt_every: int = 50,
+                      fault_plan=None, elastic: bool = False,
                       logger=print):
     """The hybrid run on THIS rank of a world already joined (every rank
     of the factorization ``hybrid`` = (dp, pp, cp, tp, ep) calls it
     together): the mesh, the policy (explicit TP when tp > 1), the step,
     and the supervised loop over this rank's state.  Returns ``(state,
-    history, policy)``.  Each rank initialises the global parameters from
-    ``seed`` on the host, keeps only its blocks (``convert.to_rank_params``)
-    and moves them to ``device``, so no card ever holds the whole model;
-    every rank draws the same global batches and cuts its own rows.
+    history, policy)``; after a device loss under ``elastic`` a rank of the
+    lost slice returns ``(None, history, None)``.  Each rank initialises
+    the global parameters from ``seed`` on the host, keeps only its blocks
+    (``convert.to_rank_params``) and moves them to ``device``, so no card
+    ever holds the whole model; every rank draws the same global batches
+    and cuts its own rows.
 
-    Only a non-finite streak restarts the run (``rollback_after_skips``):
-    its flag is agreed over the mesh, so every rank rolls back at the same
-    step.  Any other fault is raised on the rank that saw it and ends the
-    run (``launch.mesh.spawn`` then stops every rank): a restart of that
-    rank alone would pair its step 0 with its peers' pending step and
-    train the ranks out of step.  Restarting the whole mesh needs ROADMAP
-    Queue 1 item 10."""
+    Checkpoints (``ckpt_dir``, every ``ckpt_every`` steps) store each leaf
+    whole and restore each rank's blocks (``checkpoint/ckpt.py``).  The
+    supervisor restarts on the faults every rank sees at the same step:
+    the plan's crash and device loss (``fault_plan``; every rank runs the
+    same plan, and only rank 0 damages a checkpoint), a non-finite streak
+    (``rollback_after_skips``; the guard's flag is agreed over the mesh)
+    and an agreed corrupt checkpoint.  Any other fault is raised on the
+    rank that saw it and ends the run (``launch.mesh.spawn`` then stops
+    every rank): a restart of that rank alone would pair its step with its
+    peers' pending one and train the ranks out of step.  ``elastic``
+    supervises with ``train/loop.py::elastic_restart_on_failure``."""
     check_hybrid(cfg, hybrid, seq)
     device = resolve_device(device)
-    dp, pp, cp, tp, ep = hybrid
-    mesh = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep, device=device)
-    policy = Policy.for_mesh(mesh, explicit_tp=tp > 1)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed))
     opt = make_optimizer(cfg.optimizer, total_steps=steps, base_lr=lr)
     cfg = dataclasses.replace(cfg, grad_accum=1)
-    step = build_hybrid_train_step(cfg, policy, opt,
-                                   num_microbatches=microbatches,
-                                   schedule=schedule)
+    plan = _plan(fault_plan)
+    hook = nan_grad_hook(plan.poison_value) if plan is not None else None
+    last = {}
+
+    def make_setup(fact, devices, vdp):
+        dp, pp, cp, tp, ep = fact
+        mesh = launch_mesh.make_hybrid_mesh(dp, pp, cp, tp, ep,
+                                            devices=devices, device=device)
+        policy = Policy.for_mesh(mesh, explicit_tp=tp > 1)
+        kw = dict(num_microbatches=microbatches, schedule=schedule,
+                  virtual_dp=vdp)
+        step = build_hybrid_train_step(cfg, policy, opt, **kw)
+        poisoned = (build_hybrid_train_step(cfg, policy, opt,
+                                            fault_hook=hook, **kw)
+                    if hook is not None else None)
+
+        def make_state():
+            glob = init_pipeline_params(
+                cfg, torch.Generator().manual_seed(seed), pp, "cpu")
+            n = sum(p.numel() for p in glob.values())
+            params = {k: v.to(device)
+                      for k, v in to_rank_params(cfg, policy, glob).items()}
+            del glob
+            mine = sum(p.numel() for p in params.values())
+            logger(f"{cfg.name}: {n/1e6:.1f}M params ({mine/1e6:.1f}M on "
+                   f"this rank), mesh="
+                   f"{dict(zip(policy.axis_names, mesh.shape))}, "
+                   f"virtual_dp={vdp}, device={device}")
+            return init_train_state(cfg, params, opt)
+
+        last["policy"] = policy
+        return policy, hybrid_param_parts(cfg, policy), make_state, step, \
+            poisoned
 
     def make_iter(start):
         return PrefetchIterator(data, start_step=start)
 
-    def make_state():
-        glob = init_pipeline_params(cfg, torch.Generator().manual_seed(seed),
-                                    pp, "cpu")
-        n = sum(p.numel() for p in glob.values())
-        params = {k: v.to(device)
-                  for k, v in to_rank_params(cfg, policy, glob).items()}
-        del glob
-        mine = sum(p.numel() for p in params.values())
-        logger(f"{cfg.name}: {n/1e6:.1f}M params ({mine/1e6:.1f}M on this "
-               f"rank), mesh={dict(zip(policy.axis_names, mesh.shape))}, "
-               f"device={device}")
-        return init_train_state(cfg, params, opt)
-
-    loop_cfg = LoopConfig(total_steps=steps, log_every=10,
+    loop_cfg = LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                          ckpt_every=ckpt_every, log_every=10,
                           rollback_after_skips=rollback_after_skips)
-    state, hist = restart_on_failure(make_state, step, make_iter, loop_cfg,
-                                     max_restarts=max_restarts,
-                                     recoverable=(), logger=logger)
+    injector = (FaultInjector(plan, None, ckpt_dir=ckpt_dir,
+                              corrupt_rank=dist.get_rank() == 0)
+                if plan is not None else None)
+    if elastic:
+        state, hist = elastic_restart_on_failure(
+            make_setup, make_iter, loop_cfg, factorization=hybrid,
+            injector=injector, max_restarts=max_restarts,
+            recoverable=(InjectedCrash, NonFiniteStreakError), logger=logger)
+        return state, hist, (last["policy"] if state is not None else None)
+    policy, parts, make_state, step, poisoned = make_setup(hybrid, None, 1)
+    if injector is not None:
+        step = injector.rebind(step, poisoned)
+    state, hist = restart_on_failure(
+        make_state, step, make_iter, loop_cfg, policy=policy, parts=parts,
+        max_restarts=max_restarts,
+        recoverable=(InjectedCrash, DeviceLossError), logger=logger)
     return state, hist, policy
 
 
 def _hybrid_rank_main(rank, world_mesh, *, cfg, hybrid, **kw):
     """Spawned on every rank by ``train_hybrid``: the history only."""
     logs = []
-    _, hist, _ = train_hybrid_rank(cfg, hybrid, logger=logs.append, **kw)
-    return {"history": list(hist), "health": hist.health, "log": logs}
+    state, hist, _ = train_hybrid_rank(cfg, hybrid, logger=logs.append, **kw)
+    return {"history": list(hist), "health": hist.health, "log": logs,
+            "left": state is None}
 
 
 def train_hybrid(cfg, hybrid, *, device=None, timeout_s: float = 1800.0,
@@ -207,7 +272,8 @@ def train_hybrid(cfg, hybrid, *, device=None, timeout_s: float = 1800.0,
     """Spawn one process per rank of ``hybrid`` = (dp, pp, cp, tp, ep) on
     ``device`` (NCCL, one rank per card, for ``cuda``; gloo for ``cpu``)
     and run ``train_hybrid_rank`` on each; returns each rank's
-    ``{"history", "health", "log"}``."""
+    ``{"history", "health", "log", "left"}`` (``left``: the rank's slice
+    was lost under ``elastic``)."""
     check_hybrid(cfg, hybrid, kw.get("seq"))
     device = resolve_device(device)
     return launch_mesh.spawn(
@@ -249,13 +315,30 @@ def main(argv=None):
                     help="pipeline microbatches per step (hybrid mesh only)")
     ap.add_argument("--schedule", default="1f1b",
                     choices=("1f1b", "fill_drain"))
-    for flag in ("--fault-plan", "--ckpt-dir"):
-        ap.add_argument(flag, default=None, help="not ported yet")
-    ap.add_argument("--elastic", action="store_true", help="not ported yet")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="inject deterministic faults (resilience/inject.py)"
+                         ": comma-separated tokens, e.g. 'poison=5,crash=9,"
+                         "corrupt=bitflip,slow=4:0.2,seed=1'; keys: poison "
+                         "(NaN gradients at steps, '+'-joined), value "
+                         "(nan/inf), crash, corrupt (bitflip|truncate the "
+                         "newest checkpoint on crash), array (corrupt "
+                         "target key substring), slow (step:seconds), "
+                         "shrink (step:axis, with --elastic), seed, "
+                         "persistent (faults re-fire on replay)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="mesh-shrinking supervision (DESIGN §10): on a "
+                         "simulated device loss (fault-plan key "
+                         "'shrink=step:axis') shrink to the largest legal "
+                         "degraded factorization, reshard the newest "
+                         "verified checkpoint through the Repartition "
+                         "plan, fold lost data parallelism into grad "
+                         "accumulation (loss-exact), resume; requires "
+                         "--hybrid-mesh")
     args = ap.parse_args(argv)
-    for key, why in NOT_PORTED.items():
-        if getattr(args, key):
-            raise SystemExit(why)
+    if args.elastic and not args.hybrid_mesh:
+        raise SystemExit("--elastic requires --hybrid-mesh")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -263,16 +346,21 @@ def main(argv=None):
     run = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                seed=args.seed, device=args.device,
                max_restarts=args.max_restarts,
-               rollback_after_skips=args.rollback_after_skips)
+               rollback_after_skips=args.rollback_after_skips,
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+               fault_plan=args.fault_plan)
     if args.hybrid_mesh:
         hybrid = parse_hybrid(args.hybrid_mesh)
         ranks = train_hybrid(cfg, hybrid, microbatches=args.microbatches,
-                             schedule=args.schedule, **run)
+                             schedule=args.schedule, elastic=args.elastic,
+                             **run)
         for line in ranks[0]["log"]:
             print(line)
         state, hist = None, ranks[0]["history"]
         health = ranks[0]["health"]
-        where = f"mesh {','.join(map(str, hybrid))}, {len(ranks)} ranks"
+        where = (f"mesh {','.join(map(str, hybrid))}, {len(ranks)} ranks"
+                 + (f", {sum(r['left'] for r in ranks)} left"
+                    if any(r["left"] for r in ranks) else ""))
     else:
         state, hist = train(cfg, **run)
         health, where = hist.health, "one device"

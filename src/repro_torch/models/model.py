@@ -15,6 +15,7 @@ Modes:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
@@ -25,6 +26,16 @@ from .common import dense_init, rmsnorm, subtree
 from .moe import EXPERT_LEAVES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def embed_lookup(table, tokens):
+    """Rows ``tokens`` of the embedding ``table``.  ``F.embedding``, not
+    advanced indexing: on the host the indexing's backward (an
+    accumulating ``index_put_``) sums the rows' gradients in an order that
+    varies with the threads, while the embedding's backward is bitwise
+    repeatable there as on the card, which the checkpoint replays' exact
+    equality with an uninterrupted run needs."""
+    return F.embedding(tokens, table)
 
 
 def init_params(cfg, generator, device=None, dtype=None) -> dict:
@@ -167,7 +178,7 @@ def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
     dtype = DTYPES[cfg.dtype]
 
     def pre_fn(p_pre, mb):
-        x = p_pre["embed"][mb["tokens"]].to(dtype)
+        x = embed_lookup(p_pre["embed"], mb["tokens"]).to(dtype)
         if explicit:
             x = L.shard_slice(x, policy.model_axis, x.ndim - 1)
         return x
@@ -246,7 +257,7 @@ def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
             "\"Serving, the rest\": the stub frontends)")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens].to(DTYPES[cfg.dtype])
+    x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
     cache_len = int(batch.get("cache_len", 0))
     if mode == "decode":
         positions = torch.full((B, 1), cache_len, device=tokens.device)

@@ -4,6 +4,7 @@ from .loop import (  # noqa: F401
     LoopConfig,
     NonFiniteStreakError,
     StragglerMonitor,
+    elastic_restart_on_failure,
     restart_on_failure,
     run,
 )
@@ -15,6 +16,7 @@ from .step import (  # noqa: F401
     build_pipeline_train_step,
     build_train_step,
     cross_entropy,
+    hybrid_param_parts,
     init_train_state,
     loss_and_grads,
 )

@@ -1,38 +1,46 @@
-"""Training loop with restarts, NaN-streak rollback and straggler
-monitoring (mirrors ``repro/train/loop.py``).
+"""Training loop with fault tolerance and straggler monitoring (mirrors
+``repro/train/loop.py``).
 
-Restart contract: the data pipeline is addressed by step, so a loop that
-restarts from a state resumes exactly.  ``restart_on_failure`` wraps the
-step loop in a supervised retry (the in-process analogue of a cluster
-controller rescheduling a failed job): a declared set of recoverable
-exception types, seeded jittered exponential backoff, and NaN-streak
-rollback: when the guard skips ``rollback_after_skips`` steps in a row the
-poison is persistent, so the supervisor starts again and advances the data
-iterator past the poisoned window (``data_offset``: batch ``step + offset``
-feeds step ``step``).
+Restart contract: all state needed to resume (parameters, optimizer
+moments, step counter, skipped-step count) is in the checkpoint, and the
+data pipeline is addressed by step.  ``run`` therefore resumes exactly
+after any crash by restoring the newest *verified* checkpoint, and
+``restart_on_failure`` wraps the step loop in a supervised retry (the
+in-process analogue of a cluster controller rescheduling a failed job): a
+declared set of recoverable exception types, seeded jittered exponential
+backoff, fallback past corrupt checkpoints (quarantined as ``.corrupt``),
+and NaN-streak rollback: when the guard skips ``rollback_after_skips``
+steps in a row the poison is persistent, so the supervisor restores the
+last good checkpoint and advances the data iterator past the poisoned
+window (``data_offset``: batch ``step + offset`` feeds step ``step``).
+``elastic_restart_on_failure`` survives the permanent loss of a mesh
+slice: it shrinks the mesh over the surviving ranks, reshards the newest
+verified checkpoint onto it and folds the lost data parallelism into
+gradient accumulation (DESIGN §10).
 
-Checkpoints are not ported yet (ROADMAP Queue 1 item 10): ``ckpt_dir``
-other than None raises ``NotImplementedError``, and every restart starts
-again from ``make_state()``.  The mesh-shrinking supervisor
-(``elastic_restart_on_failure``) waits for items 6 and 10.
+On a mesh the loop runs on every rank (``policy``, ``parts``: the step's
+mesh and its parameters' partition declaration, where the reference takes
+``shardings``), and every rank sees each planned fault at the same step,
+so every rank restarts from the same checkpoint (the verdicts are agreed
+over the mesh, ``checkpoint/ckpt.py``).
 
 Straggler mitigation: an EWMA step-time monitor flags steps slower than
-``factor`` x the moving average.  ``run`` and ``restart_on_failure`` return
-a :class:`History` of per-step records whose ``.health`` dict carries the
+``factor`` x the moving average.  ``run`` and the supervisors return a
+:class:`History` of per-step records whose ``.health`` dict carries the
 counters an operator would page on.
 """
 
 from __future__ import annotations
 
+import math
 import random as _random
 import time
 from dataclasses import dataclass
 
 import torch
 
-NO_CKPT = ("checkpoints are not ported yet (ROADMAP Queue 1 item 10, "
-           "\"Checkpoint, resilience and elastic recovery\"): use "
-           "ckpt_dir=None")
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class History(list):
@@ -75,12 +83,12 @@ class StragglerMonitor:
 
 @dataclass
 class LoopConfig:
-    """The reference's loop settings, less the checkpoint cadence
-    (``ckpt_every``, ``keep``, ``async_ckpt``), which comes with the
-    checkpoints (ROADMAP Queue 1 item 10)."""
     total_steps: int = 100
-    ckpt_dir: str | None = None          # not ported yet: must be None
+    ckpt_dir: str | None = None
+    ckpt_every: int = 50
+    keep: int = 3
     log_every: int = 10
+    async_ckpt: bool = True
     fail_at_step: int | None = None      # injected fault: raise at this step
     rollback_after_skips: int | None = None  # NaN-streak rollback threshold
 
@@ -92,16 +100,18 @@ def _sync(t):
 
 
 def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
-        history: History | None = None, data_offset: int = 0):
+        history: History | None = None, data_offset: int = 0, policy=None,
+        parts=None):
     """Run the step loop from ``state``; returns (state, history).
 
     ``data_offset`` shifts the stateless data addressing: step ``i``
     consumes batch ``i + data_offset``.  ``history`` lets the supervisor
     thread one :class:`History` through restarts.  A step's time is the
-    host clock from before the step to the end of its last kernel.
+    host clock from before the step to the end of its last kernel.  Every
+    ``ckpt_every`` steps the state is saved (async unless
+    ``async_ckpt=False``; on ``policy``'s mesh under ``parts``), and
+    pending saves are joined before returning.
     """
-    if loop_cfg.ckpt_dir:
-        raise NotImplementedError(NO_CKPT)
     monitor = StragglerMonitor()
     if history is None:
         history = History()
@@ -140,56 +150,115 @@ def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
             logger(f"step {step:5d}  loss {rec['loss']:.4f}  "
                    f"gnorm {rec['grad_norm']:.3f}  {dt*1e3:.0f} ms"
                    + ("  [STRAGGLER]" if slow else ""))
+        if (loop_cfg.ckpt_dir and loop_cfg.ckpt_every
+                and (step + 1) % loop_cfg.ckpt_every == 0):
+            saver = (ckpt_lib.save_async if loop_cfg.async_ckpt
+                     else ckpt_lib.save)
+            saver(loop_cfg.ckpt_dir, step + 1, state, keep=loop_cfg.keep,
+                  policy=policy, parts=parts)
+    ckpt_lib.wait_pending()
     return state, history
 
 
 # The declared recoverable surface: planned crashes and loop faults
-# (RuntimeError covers the fail_at_step hook), I/O flakes (OSError), and
-# host-side float traps.  Programming errors (TypeError, ValueError,
-# KeyError...) stay fatal: restarting can't fix those and the retry would
-# loop.  NotImplementedError is a RuntimeError, so the supervisor refuses
-# a checkpoint directory before it starts rather than retrying it.
+# (RuntimeError covers InjectedCrash and the fail_at_step hook), I/O flakes
+# around checkpoint storage (OSError), and host-side float traps.
+# Programming errors (TypeError, ValueError, KeyError...) stay fatal:
+# restarting can't fix those and the retry would loop.
 RECOVERABLE = (RuntimeError, OSError, FloatingPointError)
 
 
-def restart_on_failure(make_state, train_step, make_data_iter,
-                       loop_cfg: LoopConfig, *, max_restarts: int = 3,
-                       recoverable=RECOVERABLE, backoff_base: float = 0.5,
-                       backoff_max: float = 30.0, backoff_jitter: float = 0.1,
-                       seed: int = 0, logger=print, sleep=time.sleep):
-    """Supervised retry loop: the single-process analogue of a cluster
-    restart.
+def _skeleton(state):
+    """``(like, device)``: ``state``'s tree as ``meta`` tensors (shapes and
+    dtypes, no memory) and the one device its tensors live on."""
+    devices = {t.device for t in tree_leaves(state)
+               if isinstance(t, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"a train state on one device expected: {devices}")
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta")
+                    if isinstance(t, torch.Tensor) else t, state)
+    return like, (devices.pop() if devices else None)
 
-    On a recoverable failure: start again from ``make_state()`` (no
-    checkpoint to restore yet), back off with seeded jittered exponential
-    delay (``backoff_base * 2^k``, capped at ``backoff_max``), and resume.
-    On a :class:`NonFiniteStreakError` (persistent poison): additionally
-    advance the stateless data iterator past the poisoned window via
-    ``data_offset``.  Raises after ``max_restarts`` recoveries; exception
-    types outside ``recoverable`` propagate at once.  Each data iterator is
-    closed when its attempt ends.  Returns ``(state, history)``.
+
+def _resume(loop_cfg, make_state, skel, history, logger, *, policy=None,
+            **kw):
+    """``(state, start, skel)``: the newest verified checkpoint of
+    ``loop_cfg.ckpt_dir`` restored, or ``make_state()`` at step 0 without
+    one.  The restore lands on ``skel`` (:func:`_skeleton` of the first
+    state made, or of a ``make_state()`` freed before the restore), kept
+    for later restarts, so a restart neither holds two train states nor
+    builds one to throw away; quarantined checkpoints are counted in
+    ``history``."""
+    if loop_cfg.ckpt_dir and _restart_point(loop_cfg, policy):
+        if skel is None:
+            skel = _skeleton(make_state())
+        like, device = skel
+        got = ckpt_lib.restore_latest_verified(
+            loop_cfg.ckpt_dir, like=like, device=device, logger=logger,
+            policy=policy, **kw)
+        if got is not None:
+            state, start, quarantined = got
+            history.health["quarantined_checkpoints"] += len(quarantined)
+            logger(f"resumed from checkpoint step {start}"
+                   + (f" (quarantined corrupt: {quarantined})" if quarantined
+                      else ""))
+            return state, start, skel
+    state = make_state()
+    if loop_cfg.ckpt_dir and skel is None:
+        skel = _skeleton(state)
+    return state, 0, skel
+
+
+def _backoff(restarts, rng, history, sleep, base, cap, jitter):
+    delay = min(cap, base * (2 ** (restarts - 1)))
+    delay *= 1.0 + jitter * rng.random()
+    history.health["backoff_seconds"] += delay
+    sleep(delay)
+
+
+def restart_on_failure(make_state, train_step, make_data_iter,
+                       loop_cfg: LoopConfig, *, policy=None, parts=None,
+                       max_restarts: int = 3, recoverable=RECOVERABLE,
+                       backoff_base: float = 0.5, backoff_max: float = 30.0,
+                       backoff_jitter: float = 0.1, seed: int = 0,
+                       logger=print, sleep=time.sleep):
+    """Supervised retry loop: the single-process analogue of a cluster
+    restart, and on a mesh (``policy``, ``parts``) its per-rank form.
+
+    On a recoverable failure: restore the newest checkpoint that passes
+    verification (corrupt ones are quarantined as ``.corrupt`` and the
+    previous intact one is used, DESIGN §9), back off with seeded jittered
+    exponential delay (``backoff_base * 2^k``, capped at ``backoff_max``),
+    and resume.  On a :class:`NonFiniteStreakError` (persistent poison):
+    additionally advance the stateless data iterator past the poisoned
+    window via ``data_offset``.  Raises after ``max_restarts`` recoveries;
+    exception types outside ``recoverable`` propagate at once.  Each data
+    iterator is closed when its attempt ends.  Returns ``(state,
+    history)``, ``history.health`` carrying the restart, rollback, skip,
+    backoff and quarantine counters of all attempts.
     """
-    if loop_cfg.ckpt_dir:
-        raise NotImplementedError(NO_CKPT)
     rng = _random.Random(seed)
     history = History()
     restarts = 0
     data_offset = 0
+    skel = None
     while True:
-        state = make_state()
-        start = 0
+        state, start, skel = _resume(loop_cfg, make_state, skel, history,
+                                     logger, policy=policy, parts=parts)
         data_iter = make_data_iter(start + data_offset)
         try:
             return run(state, train_step, data_iter, loop_cfg, logger=logger,
-                       history=history, data_offset=data_offset)
+                       history=history, data_offset=data_offset,
+                       policy=policy, parts=parts)
         except NonFiniteStreakError as e:
             restarts += 1
             history.health["rollbacks"] += 1
             # the poisoned data window is [first skipped batch, last skipped
-            # batch]; replay model state from the restart point but feed it
-            # the batches AFTER the window (a pure index shift)
+            # batch]; replay model state from the last good checkpoint but
+            # feed it the batches AFTER the window (a pure index shift)
             data_offset = max(data_offset, e.last_step + 1 + data_offset
-                              - _restart_point(loop_cfg))
+                              - _restart_point(loop_cfg, policy))
             logger(f"persistent non-finite streak: {e}; rolling back with "
                    f"data_offset={data_offset} "
                    f"(restart {restarts}/{max_restarts})")
@@ -207,15 +276,110 @@ def restart_on_failure(make_state, train_step, make_data_iter,
             close = getattr(data_iter, "close", None)
             if close is not None:
                 close()
-        delay = min(backoff_max, backoff_base * (2 ** (restarts - 1)))
-        delay *= 1.0 + backoff_jitter * rng.random()
-        history.health["backoff_seconds"] += delay
-        sleep(delay)
+        state = None
+        _backoff(restarts, rng, history, sleep, backoff_base, backoff_max,
+                 backoff_jitter)
 
 
-def _restart_point(loop_cfg: LoopConfig) -> int:
-    """The step the next attempt will resume from: 0, since there is no
-    checkpoint to resume from yet."""
+def _restart_point(loop_cfg: LoopConfig, policy=None) -> int:
+    """The step the next attempt will resume from (newest intact ckpt).
+    Pending saves are finished first (on a mesh, on every rank), so it is
+    the step the restore will find, the same on every rank."""
     if loop_cfg.ckpt_dir:
-        raise NotImplementedError(NO_CKPT)
+        ckpt_lib.settle(policy)
+        return ckpt_lib.latest_step(loop_cfg.ckpt_dir) or 0
     return 0
+
+
+def elastic_restart_on_failure(make_setup, make_data_iter,
+                               loop_cfg: LoopConfig, *, factorization,
+                               injector=None, max_restarts: int = 3,
+                               recoverable=RECOVERABLE,
+                               backoff_base: float = 0.5,
+                               backoff_max: float = 30.0,
+                               backoff_jitter: float = 0.1, seed: int = 0,
+                               logger=print, sleep=time.sleep):
+    """Mesh-shrinking supervisor, run on every rank of the world: survives
+    the permanent loss of a mesh slice.
+
+    Extends :func:`restart_on_failure`'s restore-and-retry posture to
+    :class:`~repro_torch.resilience.inject.DeviceLossError`, the fault a
+    plain restart cannot fix.  On a device loss (DESIGN §10):
+
+    1. the lost slice's ranks (``launch.mesh.surviving_devices``) leave:
+       they return ``(None, history)``; the survivors re-form the world
+       over themselves (``launch.mesh.shrink_world``) and take the largest
+       legal degraded factorization (``launch.mesh.shrink_factorization``);
+    2. lost DATA parallelism folds into gradient accumulation
+       (``virtual_dp`` x= fold), so the global batch schedule, and with it
+       the loss and every parameter, is bitwise unchanged;
+    3. ``make_setup`` rebuilds mesh, state and step (a shared
+       :class:`~repro_torch.resilience.inject.FaultInjector` is rebound,
+       so fire-once faults stay spent), the newest VERIFIED checkpoint is
+       resharded onto the degraded mesh
+       (``restore_latest_verified(..., reshard=True)``), and the loop
+       resumes.
+
+    ``make_setup(factorization, devices, virtual_dp)`` returns ``(policy,
+    parts, make_state, step_fn, poisoned_step_fn)`` (the last may be None);
+    ``devices=None`` means every rank of the current world.  Other
+    recoverable failures restart on the current (possibly degraded) mesh.
+    Health adds ``mesh_shrinks`` to the usual counters.
+    """
+    from repro_torch.launch.mesh import (shrink_factorization, shrink_world,
+                                         surviving_devices)
+    from repro_torch.resilience.inject import DeviceLossError
+
+    rng = _random.Random(seed)
+    history = History()
+    restarts = 0
+    data_offset = 0
+    fact = tuple(factorization)
+    vdp = 1
+    skel = None     # the state's shapes on the current mesh
+    while True:
+        policy, parts, make_state, step_fn, poisoned = make_setup(
+            fact, None, vdp)
+        train_step = (injector.rebind(step_fn, poisoned)
+                      if injector is not None else step_fn)
+        state, start, skel = _resume(loop_cfg, make_state, skel, history,
+                                     logger, policy=policy, parts=parts,
+                                     reshard=True)
+        data_iter = make_data_iter(start + data_offset)
+        try:
+            return run(state, train_step, data_iter, loop_cfg, logger=logger,
+                       history=history, data_offset=data_offset,
+                       policy=policy, parts=parts)
+        except DeviceLossError as e:
+            restarts += 1
+            history.health["restarts"] += 1
+            history.health["mesh_shrinks"] += 1
+            survivors = surviving_devices(policy.mesh, e.axis)
+            fact, fold = shrink_factorization(fact, e.axis)
+            if e.axis == "data":
+                vdp *= fold
+            want = math.prod(fact)
+            state = policy = parts = train_step = skel = None
+            if shrink_world(survivors[:want]) is None:
+                logger(f"device loss on axis {e.axis!r}: this rank's slice "
+                       f"is lost; leaving the mesh")
+                return None, history
+            logger(f"device loss on axis {e.axis!r}: shrinking to "
+                   f"(dp, S, cp, tp, ep) = {fact} over {want} "
+                   f"device(s), virtual_dp={vdp} "
+                   f"(restart {restarts}/{max_restarts})")
+            if restarts >= max_restarts:
+                raise
+        except recoverable as e:
+            restarts += 1
+            history.health["restarts"] += 1
+            logger(f"failure: {e}; restart {restarts}/{max_restarts}")
+            if restarts >= max_restarts:
+                raise
+        finally:
+            close = getattr(data_iter, "close", None)
+            if close is not None:
+                close()
+        state = None
+        _backoff(restarts, rng, history, sleep, backoff_base, backoff_max,
+                 backoff_jitter)

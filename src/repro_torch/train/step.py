@@ -158,14 +158,23 @@ def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
 MB_PART = Partitioned(None, ("data", "ep"), "ctx")
 
 
+def hybrid_param_parts(cfg, policy) -> dict:
+    """The ``Partitioned`` declaration of the global pipeline params of
+    ``cfg`` on ``policy``'s mesh: each rank's state holds its blocks under
+    it (``models.convert.to_rank_params``), and a checkpoint records it."""
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.model import (pipeline_param_parts,
+                                          to_pipeline_params)
+    pspecs = to_pipeline_params(cfg, param_specs(cfg), policy.pipe_size)
+    return pipeline_param_parts(cfg, policy, pspecs)
+
+
 def _hybrid_executor(cfg, policy, *, num_microbatches, schedule, aux_weight,
                      nonfinite_flag, fault_hook, phase_hook=None):
     """(args, kwargs, sched, parts) of the executor for ``cfg`` on
     ``policy``'s mesh; ``parts`` declares the global pipeline params."""
     from repro_torch.core.pipeline import make_schedule
-    from repro_torch.launch.specs import param_specs
-    from repro_torch.models.model import (pipeline_fns, pipeline_param_parts,
-                                          to_pipeline_params)
+    from repro_torch.models.model import pipeline_fns
     from repro_torch.models.moe import EXPERT_LEAVES
 
     sched = make_schedule(schedule, num_microbatches, policy.pipe_size)
@@ -175,8 +184,7 @@ def _hybrid_executor(cfg, policy, *, num_microbatches, schedule, aux_weight,
         loss, _ = cross_entropy(logits_fn(p_post, y), labels)
         return loss
 
-    pspecs = to_pipeline_params(cfg, param_specs(cfg), policy.pipe_size)
-    parts = pipeline_param_parts(cfg, policy, pspecs)
+    parts = hybrid_param_parts(cfg, policy)
     explicit = getattr(policy, "explicit_tp", False)
     ep_axis = policy.active_ep_axis
     stage_psum_axes = None
@@ -222,16 +230,20 @@ def build_hybrid_value_and_grad(cfg, policy, *, num_microbatches: int,
 
 
 def _replication(parts, policy) -> dict:
-    """For each leaf, 1 / (the product of the sizes of the mesh axes its
-    spec leaves replicated): weighing each rank's local sum of squares by
-    it and summing over the whole mesh counts every element once."""
+    """For each leaf, 1 / (the product of the sizes of the mesh axes but
+    ``data`` that its spec leaves replicated): weighing each rank's local
+    sum of squares by it and summing over one data replica counts every
+    element once.  Every replica holds the same gradients after the
+    drain-tail sum, so the norm does not depend on the data axis's size:
+    a mesh shrunk along it, with ``virtual_dp`` taking up the loss, clips
+    bit for bit as the full one."""
     out = {}
     for key, spec in resolve_parts(parts, policy).items():
         named = {a for e in spec if e is not None
                  for a in (e if isinstance(e, tuple) else (e,))}
         k = 1
         for a in policy.axis_names:
-            if a not in named:
+            if a not in named and a != policy.data_axis:
                 k *= policy.axis_size(a)
         out[key] = 1.0 / k
     return out
@@ -255,8 +267,8 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
     schedule with the TP rings live inside stage bodies and the
     cross-replica gradient sum (the parameter broadcast's Eq. 9 adjoint) at
     the tail of the drain.  Then the global-norm clip, counting each
-    replicated element once (:func:`_replication`, one all-reduce over the
-    mesh), and the optimizer update of this rank's blocks in place.
+    replicated element once (:func:`_replication`, one all-reduce over
+    this rank's data replica), and the optimizer update of this rank's blocks in place.
     Metrics carry the schedule's static ``bubble_fraction``.
 
     ``nonfinite_guard`` (default on): the executor returns the one-bit
@@ -321,7 +333,7 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
         with prim.use_mesh(policy.mesh):
             sq = sum(torch.sum(torch.square(g.float())) * weights[k]
                      for k, g in grads.items())
-            gnorm = torch.sqrt(prim.mesh_all_reduce_(sq))
+            gnorm = torch.sqrt(prim.mesh_all_reduce_(sq, replica=True))
         scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         metrics = {"loss": loss, "grad_norm": gnorm,

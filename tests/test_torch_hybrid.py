@@ -25,8 +25,7 @@ the same carried-over parameters and data.
 - the CLI's ``--device cpu --hybrid-mesh 2,2,1,2,1`` run (its own 8
   spawned ranks), reduced jamba at ``2,1,1,1,4`` and reduced llama4 at
   ``1,1,1,2,4`` (MoE over a live ep axis), and its exits for a sequence
-  CP does not divide, SSM mixers under CP > 1, ``--elastic`` and tied
-  embeddings.
+  CP does not divide, SSM mixers under CP > 1 and tied embeddings.
 """
 
 import functools
@@ -382,18 +381,16 @@ def test_state_is_per_rank(results):
 @pytest.mark.parametrize("clip", [1e9, 1.0])
 def test_virtual_dp_matches_wider_mesh(results, clip):
     """(1, 2, 2) with virtual_dp = 2 against (2, 2, 2): the executor's
-    passes combine to the wider mesh's loss and grads bitwise; the state
-    after one step is bitwise equal without clipping, and within 1e-6
-    with it (the two meshes sum the squared norm in different orders)."""
+    passes combine to the wider mesh's loss and grads bitwise, and the
+    state after one step is bitwise equal with and without clipping (the
+    clip norm sums over one data replica, the same ranks in the same
+    order on both meshes)."""
     for r in range(4):
         got = results[0][r]["vdp"][clip]
         assert got["loss"][0] == got["loss"][1], (r, got["loss"])
         assert got["grads_equal"], r
-        np.testing.assert_allclose(*got["grad_norm"], rtol=1e-6)
-        if clip > 1e3:
-            assert got["params_equal"], (r, got["params_err"])
-        else:
-            assert got["params_err"] < 1e-6, (r, got["params_err"])
+        assert got["grad_norm"][0] == got["grad_norm"][1], (r, got)
+        assert got["params_equal"], (r, got["params_err"])
 
 
 def test_nan_on_one_rank_skips_everywhere(results):
@@ -505,7 +502,6 @@ def test_hybrid_cli_runs_moe_on_the_host(capsys, arch, mesh):
     (["--hybrid-mesh", "1,1,3,1", "--seq", "16"], "not divisible by CP=3"),
     (["--arch", "jamba-v0.1-52b", "--hybrid-mesh", "1,1,2,1,2"],
      "zero state"),
-    (["--hybrid-mesh", "1,1,1", "--elastic"], "item 10"),
     (["--hybrid-mesh", "1,2"], "DP,PP,CP,TP,EP"),
 ])
 def test_hybrid_cli_exits_naming_the_item(argv, match):

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
-examples import neither ``jax`` nor anything of the JAX package
-``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+examples and its ``tools/*_torch.py`` import neither ``jax`` nor anything
+of the JAX package ``repro``."""
 
 import ast
 import os
@@ -10,9 +10,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
-                 ROOT / "examples" / "lenet5_distributed_torch.py"]
+                 ROOT / "examples" / "lenet5_distributed_torch.py",
+                 ROOT / "examples" / "train_lm_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + PORT_EXAMPLES
+    ROOT / "chip_smoke.py"] + PORT_EXAMPLES + sorted(
+    (ROOT / "tools").glob("*_torch.py"))
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -22,13 +24,15 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-import lenet5_distributed_torch, quickstart_torch
+import lenet5_distributed_torch, quickstart_torch, train_lm_torch
 for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
              "repro_torch.core.overlap", "repro_torch.core.layers",
              "repro_torch.models.lenet", "repro_torch.core.pipeline",
              "repro_torch.launch.specs", "repro_torch.analysis",
              "repro_torch.analysis.spaces",
-             "repro_torch.core.ring_attention"):
+             "repro_torch.core.ring_attention",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+             "repro_torch.resilience.inject"):
     assert name in names, name
 assert len(names) > 20, names
 bad = sorted(m for m in sys.modules

@@ -30,7 +30,6 @@ from repro import train as jtrain
 from repro.models import init_params as jinit_params
 from repro.optim import make_optimizer as jmake_optimizer
 from repro_torch import configs, data, train
-from repro_torch.launch import train as launch_train
 from repro_torch.models.convert import flatten, params_from_jax
 from repro_torch.optim import make_optimizer
 
@@ -318,26 +317,6 @@ def test_restart_on_failure_matches_jax(case):
         assert hist[-1]["loss"] == 5 + 5       # data_offset 5 past the window
     else:
         assert hist.health["restarts"] == 1
-
-
-def test_checkpoints_are_not_ported_yet():
-    loop_cfg = train.LoopConfig(total_steps=1, ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train.run({"step": 0}, _Script(), _Indices(0), loop_cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train.restart_on_failure(lambda: {"step": 0}, _Script(), _Indices,
-                                 loop_cfg)
-
-
-@pytest.mark.parametrize("flag,item", [
-    (["--hybrid-mesh", "1,1,2,1", "--ckpt-dir", "x"], "item 10"),
-    (["--elastic"], "item 10"),
-    (["--fault-plan", "poison=1"], "item 10"), (["--ckpt-dir", "x"],
-                                                "item 10")])
-def test_unported_cli_flags_exit_naming_their_item(flag, item):
-    with pytest.raises(SystemExit, match=item):
-        launch_train.main(["--reduced", "--device", "cpu", "--steps", "1"]
-                          + flag)
 
 
 def test_train_cli_on_the_host():

@@ -3,8 +3,10 @@ card and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Three paths are served, glm4-9b (dense attention), mamba2-370m (SSM) and
-jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), and glm4-9b is
+Five paths are served, glm4-9b (dense attention), mamba2-370m (SSM),
+jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), pixtral-12b and
+musicgen-medium (stub frontends: embeds in place of tokens), and glm4-9b
+also from a checkpoint and sharded over a (data, model) mesh; glm4-9b is
 trained, also with its sequence over a ctx axis (ring attention), and
 through checkpoints, injected faults and a mesh shrink.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
@@ -176,10 +178,42 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    quarantined 1, skipped 1, the counts set to 0 just before and read
    just after (L flash and 2L + 1 norms a step executed).  (c) Where 4
    cards exist, ``train_hybrid_rank`` at (dp, pp, cp, tp, ep) = (2, 1, 1,
-   2, 1), B 8, M 2, with ``elastic`` and ``shrink=3:data``: ranks 2-3
+   2, 1), B 8, M 2: first (b)'s config with an ``OSError`` raised by rank
+   3's save of step 2 alone, carried to every rank by the next step's
+   guard all-reduce, one restart of all four from step 2's checkpoint,
+   bitwise the clean run's (two saves of 4.75 GB); then glm4-9b at depth
+   2 with ``elastic`` and ``shrink=3:data``: ranks 2-3
    leave, ranks 0-1 finish at (1, 1, 1, 2, 1) with virtual_dp 2, bitwise
    the clean 4-card run's; on one card it records that it skipped.  One
-   line ``{"resilience": {...}}`` a part.
+   line ``{"resilience": {...}}`` a part.  Before (a) deletes its
+   checkpoint, ``launch.serve.main(["--ckpt-dir", ...])`` serves it (B 4,
+   prompt 64, 8 greedy steps): the restored params bitwise the live ones,
+   its tokens equal to an engine's on the live params (no disk writes).
+15. frontends: the stub frontends (``{"embeds": (B, S, d)}`` in place of
+   tokens).  The bf16 flash kernel at musicgen-medium's head dim 64 and
+   prefill shape against its plain version; pixtral-12b and
+   musicgen-medium at full width cut to 2 layers, prefill from random
+   embeds (B 2, S 200) card vs host: fp32 logits and caches within
+   PARITY_TOL and 4 greedy decode steps equal, bf16 within
+   BF16_PARITY_TOL of scale and the first token equal; then each in bf16
+   at its published widths (pixtral-12b: 40 layers, d 5120, 12.25B
+   parameters; musicgen-medium: 48 layers, d 1536), B 4 x 1024 random
+   embeds prefilled and 32 greedy steps, the launch counts set to 0 just
+   before and read just after (L flash, (2L + 1) norms a forward):
+   prefill and decode tok/s and peak memory.
+16. serve_sharded: sharded serving (``ServeEngine(cfg, params, policy)``
+   over a (data, model) mesh) at (1, 1), one NCCL rank: glm4-9b bf16 at
+   full width cut to 8 layers (B 4, prompt 1024, 32 steps) under
+   ``kvdim`` and ``kvseq``
+   on ``shard_params``' cut of the parameters, against the engine with no
+   policy: the prefill's and every teacher-forced decode step's logits
+   within BF16_PARITY_TOL of scale, its greedy tokens equal (a first
+   difference is tolerated only at a near-tie); the launch counts of the
+   measured request (L flash on the tensor cores, one RMSNorm a forward,
+   the final norm where the residual is whole); prefill and decode tok/s
+   and peak memory.  The 4-card mesh (1, 4), mistral-large-123b, runs in
+   ``tools/serve_phase_torch.py --four-card-meshes``
+   (``serve_meshes``).  One line ``{"serve_sharded": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -191,9 +225,11 @@ The line before the last lists the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -223,8 +259,10 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch import dist_check, serve  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import (from_pipeline_params,  # noqa: E402
-                                init_params, init_pipeline_params, moe)
+from repro_torch.models import (forward,  # noqa: E402
+                                from_pipeline_params, init_cache,
+                                init_params, init_pipeline_params,
+                                init_rank_params, moe, shard_params)
 from repro_torch.models.attention import (attention_block,  # noqa: E402
                                           attn_init)
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
@@ -342,8 +380,9 @@ RING_TRAIN = {"layers": 8, "batch": 4, "seq": 4096, "micro": 4, "steps": 5}
 # 7168): the head dim 112 kernels at its prefill shape, and its full-width
 # attention sub-layer card (bf16) vs host (fp32)
 KIMI_ATTN = {"batch": 1, "seq": 1024}
-# Phase 14: (a) phase 8's cell, (b) the chaos heal at depth 2, (c) the
-# elastic shrink on 4 cards; checkpoints under the gitignored build/.
+# Phase 14: (a) phase 8's cell, (b) the chaos heal at depth 2, (c) a
+# one-rank fault's heal and the elastic shrink on 4 cards; checkpoints
+# under the gitignored build/.
 CKPT_ROOT = ROOT / "build" / "ckpt"
 # The one-card machine takes at most 45 GiB of disk writes in one call,
 # deleted files included: (a) writes 28.7 GB once, so (b) keeps glm4-9b's
@@ -355,7 +394,31 @@ RESIL = {"batch": 4, "seq": 1024, "layers_a": 8, "layers_b": 2,
          "plan": "poison=3,crash=4,corrupt=bitflip", "ckpt_every": 2,
          "keep": 2}
 RESIL_MESH = {"full": (2, 1, 1, 2, 1), "plan": "shrink=3:data", "batch": 8,
-              "micro": 2, "steps": 4, "ckpt_every": 2}
+              "micro": 2, "steps": 4, "ckpt_every": 2,
+              # the heal: (b)'s config, an OSError in this rank's save of
+              # this step (after its part of the save's collectives)
+              "fault_rank": 3, "fault_step": 2}
+# (a)'s checkpoint served through the CLI's --ckpt-dir: B, prompt, steps
+RESIL_SERVE = {"batch": 4, "prompt_len": 64, "steps": 8}
+# Phase 15: the stub frontends at their published widths (prefill from
+# random embeds, then greedy decode from tokens), each also cut to 2
+# layers for card-vs-host parity (B 2, S 200, 4 decode steps)
+PIXTRAL, MUSICGEN = "pixtral-12b", "musicgen-medium"
+FRONTENDS = {PIXTRAL: {"batch": 4, "prompt_len": 1024, "steps": 32},
+             MUSICGEN: {"batch": 4, "prompt_len": 1024, "steps": 32}}
+FRONTEND_PARITY = {"batch": 2, "prompt_len": 200, "steps": 4}
+# Phase 16: sharded serving of glm4-9b at full width, depth cut 40 -> 8
+# (the path's code at world 1; the script's time), on a (data, model) =
+# (1, 1) mesh, one NCCL rank, under each cache layout, against the
+# engine with no policy; the 4-card meshes (tools/serve_phase_torch.py
+# --four-card-meshes): mistral-large-123b at (1, 4), (a) 2 layers against
+# one card, fp32 and bf16, (b) at full depth from the per-rank initialiser
+MISTRAL = "mistral-large-123b"
+SHARDED = {"layers": 8, "batch": 4, "prompt_len": 1024, "steps": 32}
+LAYOUTS = ("kvdim", "kvseq")
+SERVE_MESH = (1, 4)
+SERVE_MESH_PARITY = {"layers": 2, "batch": 4, "prompt_len": 256, "steps": 8}
+SERVE_MESH_FULL = {"layers": 88, "batch": 4, "prompt_len": 1024, "steps": 32}
 
 
 def expect_routes(name, dtype, before):
@@ -2555,6 +2618,7 @@ def resilience_roundtrip():
     restore_s = time.perf_counter() - t0
     loaded = io_rates()["restore"]
     differ_restored = state_diff(state, restored)
+    live = {k: v.to("cpu") for k, v in state["params"].items()}   # step 2
     state, m_live = step(state, data.batch(2))
     restored, m_restored = step(restored, data.batch(2))
     torch.cuda.synchronize()
@@ -2572,12 +2636,19 @@ def resilience_roundtrip():
            "peak_mem_bytes_restore_and_step": torch.cuda.max_memory_allocated(),
            "launches": snap}
     del state, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["served"], out["serve_launches"] = serve_from_checkpoint(cfg, d,
+                                                                 live)
+    served = out["served"]
+    del live
     shutil.rmtree(d)
     gc.collect()
     torch.cuda.empty_cache()
     free_pinned_host_memory()
     if (at != 2 or quarantined or differ_restored or differ_step3
-            or losses[0] != losses[1]):
+            or losses[0] != losses[1] or not served["tokens_equal"]
+            or served["params_differ"] or not served["restored_line"]):
         raise AssertionError(f"resilience (a): {out}")
     want = {"flash_attention": 4 * cfg.num_layers,
             "rmsnorm": 4 * (2 * cfg.num_layers + 1), "ssd_scan": 0}
@@ -2585,6 +2656,55 @@ def resilience_roundtrip():
         raise AssertionError(f"resilience (a): launches {snap}, expected "
                              f"{want}")
     return out
+
+
+def serve_from_checkpoint(cfg, d, live):
+    """(a)'s checkpoint served by ``launch.serve.main(["--ckpt-dir", d])``
+    (its depth cut passed as ``cfg``), after (a)'s own launch counts are
+    read: the restored params bitwise ``live`` (the step-2 params, kept on
+    the host), and its greedy tokens equal to those of an engine on
+    ``live`` with the CLI's prompt (``--seed 0``: drawn from seed 1).  No
+    disk writes.  The counts are set to 0 just before the CLI's run and
+    read just after it, before the comparison engine runs, and must be
+    one request's (``expected_launches``).  Returns (result, the CLI
+    run's counts)."""
+    run = RESIL_SERVE
+    said = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        res = serve.main(["--ckpt-dir", str(d), "--device", "cuda",
+                          "--batch", str(run["batch"]),
+                          "--prompt-len", str(run["prompt_len"]), "--steps",
+                          str(run["steps"])], cfg=cfg)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    served = snapshot()
+    print(said.getvalue(), end="", flush=True)
+    lines = said.getvalue().splitlines()
+    got = res["engine"].params
+    out = {**run, "cli_s": cli_s, "restored_line": [
+        ln for ln in lines if ln.startswith("restored params from step")],
+           "params_differ": [k for k in live
+                             if not torch.equal(got[k].cpu(), live[k])],
+           "tokens": res["tokens"][0].tolist()}
+    tokens = res["tokens"]
+    del res, got
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (run["batch"], run["prompt_len"]),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    params = {k: v.to("cuda") for k, v in live.items()}
+    want = ServeEngine(cfg, params, max_seq=run["prompt_len"] + run["steps"]
+                       + 8, batch_size=run["batch"]).generate(
+        prompt, run["steps"]).cpu()
+    out["tokens_equal"] = bool(torch.equal(tokens, want))
+    del params
+    want_launches = expected_launches(cfg, run["steps"])
+    if served["launches"] != want_launches:
+        raise AssertionError(f"serve from checkpoint: launches {served}, "
+                             f"expected {want_launches}")
+    return out, served
 
 
 def resilience_chaos():
@@ -2654,8 +2774,60 @@ def resilience_chaos():
     return out
 
 
+def resilience_heal_rank(rank, kw):
+    """(c)'s heal on this rank: (b)'s config at (2, 1, 1, 2, 1) through
+    ``launch.train.train_hybrid_rank``, clean, then with checkpoints every
+    2 steps and an ``OSError`` raised on rank ``fault_rank`` alone by its
+    save of step ``fault_step`` (after its part of the save's
+    collectives; ``save_async`` patched in this process).  The next step's
+    guard all-reduce carries it to every rank over NCCL, every rank
+    restarts once from the newest checkpoint; final loss and every
+    parameter against the clean run's."""
+    cfg = dataclasses.replace(get_config(GLM), num_layers=RESIL["layers_b"],
+                              vocab_size=RESIL["vocab_b"])
+    state, hist, _ = launch_train.train_hybrid_rank(
+        cfg, RESIL_MESH["full"], logger=lambda line: None, **kw)
+    clean = {"loss": repr(hist[-1]["loss"]),
+             "params": {k: v.cpu() for k, v in state["params"].items()}}
+    del state
+    d = CKPT_ROOT / "heal"
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.distributed.barrier()
+    real = ckpt_lib.save_async
+
+    def save_async(ckpt_dir, step, *a, **k):
+        out = real(ckpt_dir, step, *a, **k)
+        if step == RESIL_MESH["fault_step"] and not fired:
+            fired.append(step)
+            raise OSError(f"injected failed save of step {step} on rank "
+                          f"{rank}")
+        return out
+
+    fired, logs = [], []
+    if rank == RESIL_MESH["fault_rank"]:
+        ckpt_lib.save_async = save_async
+    try:
+        state, hist, _ = launch_train.train_hybrid_rank(
+            cfg, RESIL_MESH["full"], ckpt_dir=str(d),
+            ckpt_every=RESIL_MESH["ckpt_every"], logger=logs.append, **kw)
+    finally:
+        ckpt_lib.save_async = real
+    out = {"health": hist.health, "steps_executed": [r["step"] for r in hist],
+           "failures": [ln for ln in logs if ln.startswith("failure")],
+           "final_loss": [repr(hist[-1]["loss"]), clean["loss"]],
+           "differ": [k for k, v in state["params"].items()
+                      if not torch.equal(v.cpu(), clean["params"][k])]}
+    del state
+    torch.distributed.barrier()
+    if rank == 0:
+        shutil.rmtree(d)
+    return out
+
+
 def resilience_mesh_rank(rank, world_mesh):
-    """(c) on this rank of 4 cards: the clean run at (dp, pp, cp, tp, ep)
+    """(c) on this rank of 4 cards: the heal of a fault one rank alone
+    sees (``resilience_heal_rank``); the clean run at (dp, pp, cp, tp, ep)
     = (2, 1, 1, 2, 1) through ``launch.train.train_hybrid_rank``, then the
     same run with ``--elastic``, checkpoints every 2 steps and a data-axis
     device loss at step 3: ranks 2-3 leave, ranks 0-1 re-form the world at
@@ -2666,6 +2838,9 @@ def resilience_mesh_rank(rank, world_mesh):
     kw = dict(steps=RESIL_MESH["steps"], batch=RESIL_MESH["batch"],
               seq=RESIL["seq"], microbatches=RESIL_MESH["micro"],
               lr=TRAIN["lr"], seed=0, device="cuda")
+    heal = resilience_heal_rank(rank, kw)
+    gc.collect()
+    torch.cuda.empty_cache()
     state, hist, _ = launch_train.train_hybrid_rank(
         cfg, RESIL_MESH["full"], logger=lambda line: None, **kw)
     clean = {"loss": repr(hist[-1]["loss"]),
@@ -2687,7 +2862,8 @@ def resilience_mesh_rank(rank, world_mesh):
         elastic=True, logger=logs.append, **kw)
     out = {"rank": rank, "left": state is None, "health": hist.health,
            "seconds": time.perf_counter() - t0, "io": io_rates(),
-           "steps_executed": [r["step"] for r in hist], "log": logs}
+           "steps_executed": [r["step"] for r in hist], "log": logs,
+           "heal": heal}
     if state is None:
         return out
     out["final_loss"] = [repr(hist[-1]["loss"]), clean["loss"]]
@@ -2718,6 +2894,12 @@ def resilience_meshes(smi):
                    or r["world"] != 2 or r["health"]["mesh_shrinks"] != 1
                    for r in survivors)):
         raise AssertionError(f"resilience (c): {out}")
+    at = f"at step {RESIL_MESH['fault_step']})"
+    if any(h["differ"] or h["final_loss"][0] != h["final_loss"][1]
+           or h["health"]["restarts"] != 1 or len(h["failures"]) != 1
+           or at not in h["failures"][0]
+           for h in (r["heal"] for r in ranks)):
+        raise AssertionError(f"resilience (c) heal: {out}")
     return out
 
 
@@ -2744,7 +2926,466 @@ def phase_resilience(smi):
             **res[part]}}), flush=True)
     emit(phase="resilience", seconds=time.perf_counter() - t0)
     return {f"resilience roundtrip bf16 {GLM}": res["a"]["launches"],
+            f"serve from checkpoint bf16 {GLM}": res["a"]["serve_launches"],
             f"resilience chaos bf16 {GLM}": res["b"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the stub frontends; phase 16: sharded serving.
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def embeds_prefill(engine, embeds):
+    """The engine's prefill from ``{"embeds"}`` (its ``prefill`` takes
+    tokens, as the reference's): the forward, then the prompt's K/V copied
+    into the first positions of the engine's cache.  Returns (the last
+    logits, the cache)."""
+    cfg = engine.cfg
+    B, S = embeds.shape[:2]
+    logits, pref, _ = forward(engine.params, {"embeds": embeds}, cfg,
+                              mode="prefill")
+    cache = init_cache(cfg, B, engine.max_seq, device=embeds.device)
+    for name, leaf in pref.items():
+        cache[name][:, :, :S] = leaf
+    return logits[:, -1], cache
+
+
+@torch.inference_mode()
+def embeds_generate(engine, embeds, steps):
+    """Prefill from ``embeds``, then ``steps`` greedy decode steps; the
+    prefill's and the decode's seconds, each ended by a synchronise."""
+    S = embeds.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = embeds_prefill(engine, embeds)
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for t in range(steps):
+        out.append(tok)
+        logits, cache = engine.decode_step(cache, tok, S + t)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    return (torch.cat(out, 1), t1 - t0, time.perf_counter() - t1,
+            bool(finite))
+
+
+def frontend_parity(arch, dtype):
+    """``arch`` at full width cut to 2 layers, prefill from random embeds
+    and 4 decode steps, card against host on the same parameters (the
+    host in fp32 from the card's values): in fp32 the logits and caches
+    within PARITY_TOL and the greedy tokens equal; in bf16 the prefill
+    logits and caches within BF16_PARITY_TOL of scale and the first token
+    equal, as phases 3's.  Returns the card's launch counts."""
+    run = FRONTEND_PARITY
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype)
+    B, S = run["batch"], run["prompt_len"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = init_params(cfg, gen, "cuda")
+    embeds = randn((B, S, cfg.d_model), DTYPES[dtype], gen)
+    host_cfg = dataclasses.replace(cfg, dtype="float32")
+    host = ServeEngine(host_cfg, {k: t.float().cpu()
+                                  for k, t in params.items()},
+                       max_seq=S + run["steps"] + 8, batch_size=B)
+    card = ServeEngine(cfg, params, max_seq=S + run["steps"] + 8,
+                       batch_size=B)
+    ops.reset_launches()
+    logits_g, cache_g = embeds_prefill(card, embeds)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    logits_c, cache_c = embeds_prefill(host, embeds.float().cpu())
+    name = f"frontends parity {dtype} {arch}"
+    if dtype == "float32":
+        check_close(f"{name} prefill logits", logits_g.cpu(), logits_c,
+                    PARITY_TOL)
+        for key in cache_c:
+            check_close(f"{name} cache {key}", cache_g[key].cpu(),
+                        cache_c[key], PARITY_TOL)
+        tok = logits_c.argmax(-1, keepdim=True)
+        same = torch.equal(logits_g.argmax(-1, keepdim=True).cpu(), tok)
+        for t in range(run["steps"]):
+            logits_g, cache_g = card.decode_step(cache_g, tok.cuda(), S + t)
+            logits_c, cache_c = host.decode_step(cache_c, tok, S + t)
+            check_close(f"{name} decode {t} logits", logits_g.cpu(),
+                        logits_c, PARITY_TOL)
+            same &= torch.equal(logits_g.argmax(-1, keepdim=True).cpu(),
+                                logits_c.argmax(-1, keepdim=True))
+            tok = logits_c.argmax(-1, keepdim=True)
+        expect_no_route(name, snap, "tensor_core")
+    else:
+        check_scaled(f"{name} prefill logits", logits_g.cpu(), logits_c,
+                     BF16_PARITY_TOL)
+        for key in cache_c:
+            check_scaled(f"{name} cache {key}", cache_g[key].cpu(),
+                         cache_c[key], BF16_PARITY_TOL)
+        same = torch.equal(logits_g.float().argmax(-1).cpu(),
+                           logits_c.argmax(-1))
+        expect_no_route(name, snap, "cuda_core")
+    emit(phase="frontends_parity", arch=arch, dtype=dtype, frontend=cfg.frontend,
+         greedy_tokens_equal=bool(same), launches=snap)
+    if not same:
+        raise AssertionError(f"{name}: greedy tokens differ")
+    return snap
+
+
+def frontend_serve(arch, smi):
+    """``arch`` in bf16 at its published widths: B 4 random embeds of 1024
+    positions prefilled, then 32 greedy steps; a warm-up run of 2 steps
+    first, the launch counts set to 0 just before the measured run and
+    read just after (L flash launches on the tensor cores, (2L + 1) norms a
+    forward)."""
+    cfg = get_config(arch)
+    run = FRONTENDS[arch]
+    B, S, steps = run["batch"], run["prompt_len"], run["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = init_params(cfg, gen, "cuda")
+    n_params = sum(p.numel() for p in params.values())
+    embeds = randn((B, S, cfg.d_model), torch.bfloat16, gen)
+    engine = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
+    embeds_generate(engine, embeds, 2)                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens, prefill_s, decode_s, finite = embeds_generate(engine, embeds,
+                                                          steps)
+    snap = snapshot()
+    out = {"arch": arch, "frontend": cfg.frontend, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
+           **run, "prefill_s": prefill_s, "decode_s": decode_s,
+           "prefill_tok_s": B * S / prefill_s,
+           "decode_tok_s": B * steps / decode_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": snap, "tokens": tokens[0].tolist(),
+           "nvidia_smi": smi}
+    emit(phase="frontends_serve", **out)
+    want = {"flash_attention": cfg.num_layers,
+            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
+            "ssd_scan": 0}
+    if (not finite or snap["launches"] != want
+            or snap["routes"]["flash_attention"]["cuda_core"]
+            or tokens.shape != (B, steps)
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"frontends {arch}: {out}, launches expected "
+                             f"{want}")
+    del engine, params
+    return snap
+
+
+def phase_frontends(smi):
+    """Phase 15, ``frontends``: the bf16 flash kernel at musicgen-medium's
+    head dim 64 and prefill shape against its plain version; each stub
+    frontend's 2-layer parity, fp32 and bf16; each served at full width.
+    Returns the launch counts by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config(MUSICGEN)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, S = FRONTENDS[MUSICGEN]["batch"], FRONTENDS[MUSICGEN]["prompt_len"]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = randn((B, S, H, hd), torch.bfloat16, gen)
+    k = randn((B, S, KH, hd), torch.bfloat16, gen)
+    v = randn((B, S, KH, hd), torch.bfloat16, gen)
+    before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+    got = ops.flash_attention(q, k, v, causal=True)
+    expect_routes("flash_attention", torch.bfloat16, before)
+    check_close(f"flash {MUSICGEN} hd {hd} B={B} S={S} H={H} bf16", got,
+                ref.attention_ref(q, k, v, causal=True),
+                FLASH_TOL[torch.bfloat16])
+    del q, k, v, got
+    by_path = {}
+    for arch in (PIXTRAL, MUSICGEN):
+        for dtype in ("float32", "bfloat16"):
+            by_path[f"frontends parity {dtype} {arch}"] = frontend_parity(
+                arch, dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+        by_path[f"frontends bf16 {arch}"] = frontend_serve(arch, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="frontends", seconds=time.perf_counter() - t0)
+    return by_path
+
+
+def teacher_forced(engine, prompt, tokens):
+    """The last logits of ``engine``'s prefill and of each decode step fed
+    ``tokens`` (B, steps): (steps + 1, B, V) in fp32 on the host."""
+    S = prompt.shape[1]
+    logits, cache = engine.prefill(prompt)
+    out = [logits.float().cpu()]
+    for t in range(tokens.shape[1] - 1):
+        logits, cache = engine.decode_step(cache, tokens[:, t:t + 1], S + t)
+        out.append(logits.float().cpu())
+    return torch.stack(out)
+
+
+def held_to(name, got, want, got_tokens, want_tokens, tol, exact_tokens):
+    """Logits (steps, B, V), teacher-forced on the reference's greedy
+    tokens, within ``tol`` of scale, and the greedy tokens equal.  With
+    ``exact_tokens`` False (bf16), where two greedy runs may part at a
+    near-tie, the tokens are held teacher-forced at every step and row
+    instead: wherever the argmax of ``got`` is not the reference's token,
+    that row's top-2 margin in ``want`` must lie within twice the error
+    of ``got`` at those two entries, else it fails."""
+    share = check_scaled(name, got, want, tol)
+    got_tokens, want_tokens = got_tokens.cpu(), want_tokens.cpu()
+    equal = bool(torch.equal(got_tokens, want_tokens))
+    first = (None if equal else
+             int((got_tokens != want_tokens).any(0).nonzero()[0]))
+    if exact_tokens and not equal:
+        raise AssertionError(f"{name}: greedy tokens differ first at step "
+                             f"{first}")
+    ties = []
+    for t, b in (got.argmax(-1) != want_tokens.T).nonzero().tolist():
+        top2 = torch.topk(want[t, b], 2).indices
+        margin = float(want[t, b, top2[0]] - want[t, b, top2[1]])
+        err = float((got[t, b, top2] - want[t, b, top2]).abs().max())
+        ties.append({"step": t, "row": b, "margin": margin, "err": err})
+        if margin > 2 * err:
+            raise AssertionError(f"{name}: teacher-forced token differs at "
+                                 f"step {t}, row {b}: top-2 margin {margin} "
+                                 f"beyond twice the error there, {err}")
+    return {"share": share, "tokens_equal": equal, "first_differ": first,
+            "teacher_forced_differ": len(ties), "ties": ties[:8]}
+
+
+def decode_profile(engine, prompt, top=8):
+    """One decode step after ``prompt``'s prefill under ``torch.profiler``
+    (host and device activity): its wall ms (synchronised; the profiler's
+    own cost included), the device kernels' self times summed over every
+    stream (NCCL kernels' waiting included, so not a busy share of the
+    wall), the collectives the step issued, and the ``top`` host ops by
+    self CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        logits, cache = engine.prefill(prompt)
+        tok = logits.argmax(-1, keepdim=True)
+        engine.decode_step(cache, tok, S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.decode_step(cache, tok, S + 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sum(getattr(e, "self_device_time_total", 0) for e in events
+                  if str(e.device_type).endswith("CUDA")) / 1e3
+    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:top]
+    return {"wall_ms": wall_ms, "kernel_ms_sum": kernels,
+            "collectives": sum(e.count for e in events
+                               if e.key.startswith("c10d::")),
+            "host_top": [{"op": e.key, "count": e.count,
+                          "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                         for e in host]}
+
+
+def serve_sharded_rank(rank, world_mesh):
+    """Phase 16 on one NCCL rank: glm4-9b bf16 at full width (``SHARDED``'s
+    depth) through
+    ``ServeEngine`` with no policy, then with a (data, model) = (1, 1)
+    policy under each layout on the same parameters (``shard_params``):
+    the logits of the prefill and of every decode step fed the unsharded
+    engine's greedy tokens within BF16_PARITY_TOL of scale, and the
+    tokens held to the unsharded engine's at every step, teacher-forced
+    (``held_to``); a warm-up request,
+    then the measured one with the launch counts set to 0 just before and
+    read just after (L flash on the tensor cores, one RMSNorm a forward:
+    the final norm, where the residual is whole)."""
+    run = SHARDED
+    cfg = dataclasses.replace(get_config(GLM), num_layers=run["layers"])
+    B, S, steps = run["batch"], run["prompt_len"], run["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    base = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
+    base.generate(prompt, 2)                             # warm-up
+    want_tok = base.generate(prompt, steps)
+    out = {"arch": GLM, "mesh": (1, 1), **run, "layouts": {},
+           "unsharded_prefill_tok_s": B * S / base.stats["prefill_s"],
+           "unsharded_decode_tok_s": B * steps / base.stats["decode_s"],
+           "unsharded_decode_profile": decode_profile(base, prompt)}
+    want = teacher_forced(base, prompt, want_tok)
+    mesh = launch_mesh.make_host_mesh((1, 1), ("data", "model"),
+                                      device="cuda")
+    for layout in LAYOUTS:
+        pol = Policy.for_mesh(mesh, kv_layout=layout)
+        engine = ServeEngine(cfg, shard_params(cfg, params, pol), pol,
+                             max_seq=S + steps + 8, batch_size=B)
+        engine.generate(prompt, 2)                        # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        got_tok = engine.generate(prompt, steps)
+        snap = snapshot()
+        st = engine.stats
+        got = teacher_forced(engine, prompt, want_tok)
+        res = held_to(f"serve_sharded {layout} {GLM}", got, want, got_tok,
+                      want_tok, BF16_PARITY_TOL, exact_tokens=False)
+        res.update(prefill_tok_s=B * S / st["prefill_s"],
+                   decode_tok_s=B * steps / st["decode_s"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches=snap, logits_finite=st["logits_finite"],
+                   decode_profile=decode_profile(engine, prompt))
+        out["layouts"][layout] = res
+        want_l = {"flash_attention": cfg.num_layers, "rmsnorm": 1 + steps,
+                  "ssd_scan": 0}
+        if (snap["launches"] != want_l or not st["logits_finite"]
+                or snap["routes"]["flash_attention"]["cuda_core"]):
+            raise AssertionError(f"serve_sharded {layout}: {res}, launches "
+                                 f"expected {want_l}")
+        del engine
+    return out
+
+
+def phase_serve_sharded(smi):
+    """Phase 16, ``serve_sharded``: ``serve_sharded_rank`` spawned as one
+    NCCL rank.  Prints ``{"serve_sharded": ...}``; returns the launch
+    counts of each layout's measured request by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (res,) = launch_mesh.spawn(serve_sharded_rank, 1, device="cuda",
+                               timeout_s=900)
+    res.update(kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               seconds=time.perf_counter() - t0)
+    print(json.dumps({"serve_sharded": res}), flush=True)
+    return {f"serve_sharded {layout} bf16 {GLM}":
+            res["layouts"][layout]["launches"] for layout in LAYOUTS}
+
+
+def serve_mesh_parity(rank, dtype):
+    """(a) on this rank of (data, model) = (1, 4): mistral-large-123b at
+    full width cut to 2 layers, the global parameters drawn on every card
+    from one seed, the one-card engine with no policy against the sharded
+    engine on this rank's cut (``shard_params``) under each layout: fp32
+    logits within PARITY_TOL of scale and greedy tokens equal, bf16 within
+    BF16_PARITY_TOL (``held_to``)."""
+    run = SERVE_MESH_PARITY
+    cfg = dataclasses.replace(get_config(MISTRAL), num_layers=run["layers"],
+                              dtype=dtype)
+    B, S, steps = run["batch"], run["prompt_len"], run["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    base = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
+    want_tok = base.generate(prompt, steps)
+    want = teacher_forced(base, prompt, want_tok)
+    del base
+    mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
+                                      device="cuda")
+    fp32 = dtype == "float32"
+    out = {"params": sum(p.numel() for p in params.values())}
+    for layout in LAYOUTS:
+        pol = Policy.for_mesh(mesh, kv_layout=layout)
+        engine = ServeEngine(cfg, shard_params(cfg, params, pol), pol,
+                             max_seq=S + steps + 8, batch_size=B)
+        ops.reset_launches()
+        got_tok = engine.generate(prompt, steps)
+        snap = snapshot()
+        got = teacher_forced(engine, prompt, want_tok)
+        out[layout] = held_to(
+            f"serve_mesh {SERVE_MESH} {layout} {dtype} {MISTRAL} rank {rank}",
+            got, want, got_tok, want_tok,
+            PARITY_TOL if fp32 else BF16_PARITY_TOL, exact_tokens=fp32)
+        out[layout]["launches"] = snap
+        expect_no_route(f"serve_mesh {layout} {dtype}", snap,
+                        "tensor_core" if fp32 else "cuda_core")
+        del engine
+    return out
+
+
+def serve_mesh_full(rank, smi):
+    """(b) on this rank of (1, 4): mistral-large-123b in bf16 at full
+    width and ``SERVE_MESH_FULL["layers"]`` layers, this rank's shards
+    drawn on its card alone (``init_rank_params``), B 4, prompt 1024, 32
+    greedy steps under each layout: a warm-up request of 2 steps, then
+    the measured one, its launch counts set to 0 just before and read
+    just after (L flash launches, one RMSNorm a forward)."""
+    run = SERVE_MESH_FULL
+    cfg = dataclasses.replace(get_config(MISTRAL), num_layers=run["layers"])
+    B, S, steps = run["batch"], run["prompt_len"], run["steps"]
+    mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
+                                      device="cuda")
+    t0 = time.perf_counter()
+    params = init_rank_params(cfg, Policy.for_mesh(mesh), seed=0,
+                              device="cuda")
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_layers, "init_s": time.perf_counter() - t0,
+           "rank_params": sum(p.numel() for p in params.values()),
+           "rank_param_bytes": sum(p.numel() * p.element_size()
+                                   for p in params.values()),
+           "nvidia_smi": smi}
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    for layout in LAYOUTS:
+        pol = Policy.for_mesh(mesh, kv_layout=layout)
+        engine = ServeEngine(cfg, params, pol, max_seq=S + steps + 8,
+                             batch_size=B)
+        engine.generate(prompt, 2)                         # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        tokens = engine.generate(prompt, steps)
+        snap = snapshot()
+        st = engine.stats
+        out[layout] = {"prefill_s": st["prefill_s"],
+                       "decode_s": st["decode_s"],
+                       "prefill_tok_s": B * S / st["prefill_s"],
+                       "decode_tok_s": B * steps / st["decode_s"],
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": snap, "tokens": tokens[0].tolist(),
+                       "logits_finite": st["logits_finite"],
+                       "decode_profile": decode_profile(engine, prompt)}
+        want = {"flash_attention": cfg.num_layers, "rmsnorm": 1 + steps,
+                "ssd_scan": 0}
+        if (snap["launches"] != want or not st["logits_finite"]
+                or snap["routes"]["flash_attention"]["cuda_core"]):
+            raise AssertionError(f"serve_mesh full {layout} rank {rank}: "
+                                 f"{out[layout]}, expected {want}")
+        del engine
+    return out
+
+
+def serve_mesh_rank(rank, world_mesh, *, smi):
+    out = {"rank": rank, "parity": {}}
+    for dtype in ("float32", "bfloat16"):
+        out["parity"][dtype] = serve_mesh_parity(rank, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["full"] = serve_mesh_full(rank, smi)
+    return out
+
+
+def serve_meshes(smi):
+    """The 4-card cells of sharded serving (``tools/serve_phase_torch.py
+    --four-card-meshes``): (a) and (b) at (data, model) = (1, 4), one NCCL
+    rank per card; on fewer cards it records that it skipped.  The ranks
+    must agree on every greedy token."""
+    cards = torch.cuda.device_count()
+    world = math.prod(SERVE_MESH)
+    if world > cards:
+        return {"skipped": f"mesh {SERVE_MESH} needs {world} cards, this "
+                f"machine has {cards}"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(functools.partial(serve_mesh_rank, smi=smi),
+                              world, device="cuda", timeout_s=1800)
+    for r in ranks:
+        for layout in LAYOUTS:
+            if r["full"][layout]["tokens"] != ranks[0]["full"][layout][
+                    "tokens"]:
+                raise AssertionError(f"serve_mesh: rank {r['rank']} "
+                                     f"disagrees under {layout}")
+    return {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "mesh": SERVE_MESH, "seconds": time.perf_counter() - t0,
+            "ranks": ranks}
 
 
 def main():
@@ -2766,6 +3407,8 @@ def main():
     by_path.update(phase_moe(smi))
     by_path.update(phase_ring(smi))
     by_path.update(phase_resilience(smi))
+    by_path.update(phase_frontends(smi))
+    by_path.update(phase_serve_sharded(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

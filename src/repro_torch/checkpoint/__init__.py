@@ -4,6 +4,7 @@ from .ckpt import (  # noqa: F401
     LeafReshardPlan,
     MeshMismatchError,
     capture_layouts,
+    check_pending,
     latest_step,
     plan_reshard,
     quarantine,

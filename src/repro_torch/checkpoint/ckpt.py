@@ -16,7 +16,8 @@
 - **Async**: ``save_async`` copies the state to host memory before it
   returns (the optimizer updates the state in place, so a later copy could
   see a half-updated step) and writes on a background thread; the first
-  failure of a thread is re-raised by ``wait_pending()``.
+  failure of a thread is re-raised by ``wait_pending()`` (or, once the
+  thread has ended, ``check_pending()``).
 - **Mesh-aware (elastic)**: arrays are stored whole (the global array) and
   the manifest records the save-time mesh factorization and each leaf's
   partition spec.  ``restore`` onto the same factorization gives each rank
@@ -361,12 +362,19 @@ def save(ckpt_dir: str, step: int, state, keep: int = 3, *, policy=None,
     The manifest records the mesh factorization of ``policy`` and each
     leaf's spec under ``parts`` (:func:`capture_layouts`).  On a mesh the
     writer renames and then every rank passes one barrier, so no rank
-    takes another step before the checkpoint is final."""
+    takes another step before the checkpoint is final.  A failed write
+    (``OSError``) is agreed by that barrier, so every rank raises it."""
     snap = _snapshot(state, policy, parts)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    failure = None
     if _writer(policy):
-        final = _write(ckpt_dir, step, snap, keep)
-    _agree(0, policy)
+        try:
+            final = _write(ckpt_dir, step, snap, keep)
+        except OSError as e:
+            failure = e
+    if _agree(failure is not None, policy):
+        raise failure or OSError(f"the writer failed to write checkpoint "
+                                 f"step {step}")
     return final
 
 
@@ -381,7 +389,7 @@ def save_async(ckpt_dir: str, step: int, state, keep: int = 3, *,
     writer's).  The host copy is complete before this returns, so the
     in-place optimizer update that follows cannot reach it.  Failures on
     the thread are captured and the first re-raised by
-    :func:`wait_pending`; finished threads are pruned on every call.
+    :func:`wait_pending` or :func:`check_pending`; finished threads are pruned on every call.
     Returns the thread (None on a rank that does not write)."""
     snap = _snapshot(state, policy, parts)
     if not _writer(policy):
@@ -402,12 +410,13 @@ def save_async(ckpt_dir: str, step: int, state, keep: int = 3, *,
     return t
 
 
-def settle(policy=None):
+def settle(policy=None, fault: bool = False) -> bool:
     """Finish this rank's pending saves (``wait_pending``) and, on a mesh,
-    wait until every rank of it has (one barrier): afterwards every rank
-    lists the same checkpoints."""
+    wait until every rank of it has (one max all-reduce of ``fault``):
+    afterwards every rank lists the same checkpoints.  Returns whether any
+    rank passed ``fault`` (``fault`` itself without a mesh)."""
     wait_pending()
-    _agree(0, policy)
+    return bool(_agree(fault, policy))
 
 
 def wait_pending():
@@ -416,6 +425,12 @@ def wait_pending():
         threads = list(_pending)
     for t in threads:
         t.join()
+    check_pending()
+
+
+def check_pending():
+    """Re-raise the first failure of a finished async save, without
+    waiting for the running ones (:func:`wait_pending` waits)."""
     with _pending_guard:
         _pending[:] = [p for p in _pending if p.is_alive()]
         errors = list(_async_errors)

@@ -58,7 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..resilience.guard import nonfinite_flag as _nonfinite_flag
+from ..resilience.guard import HOST_FAULT, nonfinite_flag as _nonfinite_flag
 from ..tree import subtree, tree_map
 from . import primitives as prim
 from .compile import dist_jit
@@ -291,7 +291,9 @@ def pipeline_value_and_grad_local(pre_fn, stage_fn, post_fn, policy,
     ``stage_psum_axes(key) -> axes``: per stage leaf (``key`` without the
     ``stage.`` prefix), the axes its gradient sums over (default data +
     ctx + ep); ``nonfinite_flag``: also return the globally agreed int32
-    one-bit non-finite flag, ``f -> (loss, grads, flag)``;
+    one-bit non-finite flag, ``f -> (loss, grads, flag)``, and take
+    ``f(..., fault=True)`` on a rank that holds a fault from outside the
+    step (the flag is then at least ``HOST_FAULT`` on every rank);
     ``grad_fault_hook(grads) -> grads``: applied after the drain-tail sums,
     before the flag.  ``phase_hook(kind)``, an instrumentation point, is
     called as each tick starts with ``"F"``, ``"B"`` or ``"idle"`` (this
@@ -333,7 +335,10 @@ def pipeline_value_and_grad_local(pre_fn, stage_fn, post_fn, policy,
         prim.psum_(tensors, [a for a in axes if a not in dp_axes])
         prim.psum_(tensors, dp_axes)
 
-    def run(params, xs, ys):
+    def run(params, xs, ys, fault=False):
+        if fault and not nonfinite_flag:
+            raise ValueError("a held fault is carried by the non-finite "
+                             "flag's all-reduce: build with nonfinite_flag")
         s = prim.axis_index(pipe_axis)
         p_pre, p_post = subtree(params, "pre"), subtree(params, "post")
         # stage leaves arrive as this rank's (1, ...) block: drop the dim
@@ -473,7 +478,12 @@ def pipeline_value_and_grad_local(pre_fn, stage_fn, post_fn, policy,
         # reduces its loss and gradient blocks to one local bit; one max
         # all-reduce over the whole mesh agrees it, so every rank returns
         # the same flag and takes the same branch.
-        flag = prim.mesh_all_reduce_(_nonfinite_flag((loss, grads)), "max")
+        # A rank that holds a fault from outside the step (``fault``)
+        # sends HOST_FAULT instead, so every rank reads the fault here.
+        flag = _nonfinite_flag((loss, grads))
+        if fault:
+            flag = torch.full_like(flag, HOST_FAULT)
+        flag = prim.mesh_all_reduce_(flag, "max")
         return loss, grads, flag
 
     return run

@@ -80,6 +80,7 @@ __all__ = [
     "axis_size",
     "axis_index",
     "psum_",
+    "pmax",
     "mesh_all_reduce_",
 ]
 
@@ -284,6 +285,18 @@ def psum_(tensors, axes):
 
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The elementwise max of ``x`` over mesh axis ``axis_name``, out of
+    place and outside autograd: the reference's ``pmax``.  Max is not
+    linear, so it has no adjoint here; the flash-decoding combine uses it
+    for the running max of the scores before the linear sum-reduce."""
+    ax = _axis(axis_name)
+    out = x.clone(memory_format=torch.contiguous_format)
+    if ax.size > 1:
+        dist.all_reduce(out, op=_REDUCE_OPS["max"], group=ax.group)
+    return out
 
 
 def mesh_all_reduce_(x: torch.Tensor, op: str = "sum", *,

@@ -45,11 +45,14 @@ newest checkpoint, and the supervisor quarantines it, falls back and
 resumes.  ``--elastic`` (with ``--hybrid-mesh``) survives the loss of a
 mesh slice (``shrink=step:axis`` in the plan): the lost ranks leave, the
 survivors shrink the mesh, reshard the newest verified checkpoint and fold
-lost data parallelism into ``virtual_dp``.  On the hybrid path every rank
-runs the same plan, so the supervisor restarts on the faults every rank
-sees at the same step (the plan's crash and device loss, a non-finite
-streak, an agreed corrupt checkpoint); any other fault ends the run on
-every rank (``launch.mesh.spawn`` stops them).  CP > 1
+lost data parallelism into ``virtual_dp``.  On the hybrid path the
+supervisor restarts the whole mesh on the reference's recoverable set
+(``RuntimeError``, ``OSError``, ``FloatingPointError``) when every rank
+raised the fault at the same step: the plan's faults (every rank runs the
+same plan), a non-finite streak, and a fault one rank raised outside the
+step (a failed checkpoint write), which the step's guard all-reduce
+carries to every rank; any other fault ends the run on every rank
+(``launch.mesh.spawn`` stops them).  CP > 1
 refuses SSM mixers (the reference scans each sequence shard from zero
 state) and a ``--seq`` it does not divide.  Explicit
 TP (TP > 1) takes MoE FFNs only behind attention mixers, as the
@@ -76,10 +79,9 @@ from repro_torch.models import init_params, init_pipeline_params
 from repro_torch.models.convert import to_rank_params
 from repro_torch.models.model import _check_pipelineable
 from repro_torch.optim import make_optimizer
-from repro_torch.resilience import (DeviceLossError, FaultInjector,
-                                    FaultPlan, InjectedCrash, nan_grad_hook)
+from repro_torch.resilience import FaultInjector, FaultPlan, nan_grad_hook
 from repro_torch.sharding import Policy
-from repro_torch.train import (LoopConfig, NonFiniteStreakError,
+from repro_torch.train import (RECOVERABLE, LoopConfig,
                                build_hybrid_train_step, build_train_step,
                                elastic_restart_on_failure,
                                hybrid_param_parts, init_train_state,
@@ -185,15 +187,21 @@ def train_hybrid_rank(cfg, hybrid, *, steps: int, batch: int, seq: int,
 
     Checkpoints (``ckpt_dir``, every ``ckpt_every`` steps) store each leaf
     whole and restore each rank's blocks (``checkpoint/ckpt.py``).  The
-    supervisor restarts on the faults every rank sees at the same step:
-    the plan's crash and device loss (``fault_plan``; every rank runs the
-    same plan, and only rank 0 damages a checkpoint), a non-finite streak
-    (``rollback_after_skips``; the guard's flag is agreed over the mesh)
-    and an agreed corrupt checkpoint.  Any other fault is raised on the
-    rank that saw it and ends the run (``launch.mesh.spawn`` then stops
-    every rank): a restart of that rank alone would pair its step with its
-    peers' pending one and train the ranks out of step.  ``elastic``
-    supervises with ``train/loop.py::elastic_restart_on_failure``."""
+    supervisor restarts on the reference's recoverable set,
+    ``(RuntimeError, OSError, FloatingPointError)``, and always the whole
+    mesh from one checkpoint, on faults every rank raises at the same
+    step: the plan's crash and device loss (``fault_plan``; every rank
+    runs the same plan, and only rank 0 damages a checkpoint), a
+    non-finite streak (``rollback_after_skips``; the guard's flag is
+    agreed over the mesh), an agreed corrupt checkpoint, and a fault one
+    rank raised outside the step (a failed checkpoint write), which the
+    next step's guard all-reduce carries to every rank
+    (``train/loop.py::run``).  Any other fault (outside the set, or raised
+    inside a step on one rank) ends the run (``launch.mesh.spawn`` then
+    stops every rank): a restart of that rank alone would pair its step
+    with its peers' pending one and train the ranks out of step.
+    ``elastic`` supervises with
+    ``train/loop.py::elastic_restart_on_failure``."""
     check_hybrid(cfg, hybrid, seq)
     device = resolve_device(device)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -247,15 +255,14 @@ def train_hybrid_rank(cfg, hybrid, *, steps: int, batch: int, seq: int,
         state, hist = elastic_restart_on_failure(
             make_setup, make_iter, loop_cfg, factorization=hybrid,
             injector=injector, max_restarts=max_restarts,
-            recoverable=(InjectedCrash, NonFiniteStreakError), logger=logger)
+            recoverable=RECOVERABLE, logger=logger)
         return state, hist, (last["policy"] if state is not None else None)
     policy, parts, make_state, step, poisoned = make_setup(hybrid, None, 1)
     if injector is not None:
         step = injector.rebind(step, poisoned)
     state, hist = restart_on_failure(
         make_state, step, make_iter, loop_cfg, policy=policy, parts=parts,
-        max_restarts=max_restarts,
-        recoverable=(InjectedCrash, DeviceLossError), logger=logger)
+        max_restarts=max_restarts, recoverable=RECOVERABLE, logger=logger)
     return state, hist, policy
 
 

@@ -7,7 +7,9 @@ from .model import (  # noqa: F401
     init_cache,
     init_params,
     init_pipeline_params,
+    init_rank_params,
     pipeline_fns,
     pipeline_param_parts,
+    shard_params,
     to_pipeline_params,
 )

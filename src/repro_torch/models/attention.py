@@ -10,6 +10,16 @@ where the sequence is sharded and attention rings over it
 (``core/ring_attention.py``, plain torch as in the reference, which
 refuses its flash kernel under ctx).  Decode is a single-token
 contraction against the KV cache in plain PyTorch, as in the JAX package.
+
+Under a serve policy (``attention_block_tp`` in prefill and decode, every
+rank holding its own heads) the cache is sharded by ``policy.kv_layout``
+over the model axis, as the reference's GSPMD places it
+(``repro/models/attention.py:200-212,247-254``): ``kvdim`` splits head_dim,
+so decode's score contraction sums partials over the axis; ``kvseq``
+splits the sequence into one contiguous block a rank, and decode is
+flash-decoding: each rank attends over its own block and the (max, sum,
+output) partials are combined by a max all-reduce and a sum all-reduce.
+The heads-to-layout moves are the port's ``Repartition``.
 """
 
 from __future__ import annotations
@@ -19,6 +29,8 @@ import math
 import torch
 
 from repro_torch.core import layers as L
+from repro_torch.core import primitives as prim
+from repro_torch.core.linop import Layout, Repartition
 from repro_torch.core.ring_attention import (ring_attention,
                                              ring_attention_region)
 from repro_torch.kernels import ops
@@ -110,8 +122,9 @@ def attention_block(p, x, cfg, *, positions, mode, cache=None,
     return out @ p["wo"], kv
 
 
-def attention_block_tp(p, h, cfg, policy, *, positions):
-    """Explicit-TP attention sub-layer on LOCAL blocks (inside dist_jit).
+def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
+                       cache=None, index: int = 0, cache_len=None):
+    """Explicit-TP attention sub-layer on LOCAL blocks (inside a region).
 
     h: (B_loc, S, d_model/tp): the residual stream is FEATURE-sharded over
     the model axis, so the qkv projections are gather-affines (the paper's
@@ -122,10 +135,17 @@ def attention_block_tp(p, h, cfg, policy, *, positions):
     rank's heads, the hand-written kernel on the card and the plain version
     on the host, as in ``attention_block``.  The reference attends with
     ``blockwise_attention`` here; the two agree at Sq == Skv (the flash
-    kernel's top-left causal mask), which train mode always has.  Under a
-    live ctx axis S is this rank's sequence shard and attention rings over
-    it (``core/ring_attention.py``): ``positions`` must then be global.
-    Train/prefill math only (no cache plumbing).
+    kernel's top-left causal mask), which train and prefill always have.
+    Under a live ctx axis (train) S is this rank's sequence shard and
+    attention rings over it (``core/ring_attention.py``): ``positions``
+    must then be global.
+
+    Serving (``mode`` prefill or decode; the weights are this rank's
+    shards, ``cache`` this rank's part of ``models.init_cache(...,
+    policy=)``): prefill writes each layer's K/V into ``cache[..][index]``
+    in the ``policy.kv_layout`` layout; decode writes the new token's K/V
+    where that layout keeps position ``cache_len`` and attends over the
+    first ``cache_len + 1`` positions (module docstring).
     """
     ax = policy.model_axis
     tp = policy.model_size
@@ -139,9 +159,100 @@ def attention_block_tp(p, h, cfg, policy, *, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     ctx = policy.active_ctx_axis
-    if ctx is not None:
+    if mode == "decode":
+        out = _decode_tp(q, k, v, cache, index, cache_len, policy)
+    elif ctx is not None and mode == "train":
         out = ring_attention(q, k, v, ctx, chunk=cfg.attn_chunk)
     else:
         out = ops.flash_attention(q, k, v, causal=True)
+        if mode == "prefill":
+            _prefill_cache_tp(k, v, cache, index, policy)
     out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
     return L.affine_scatter(out, p["wo"], axis=ax)
+
+
+def _heads_to(dim: int, policy) -> Repartition:
+    """The move of a (B, S, heads, hd) block from the heads split over the
+    model axis (dim 2) to the split of ``dim``."""
+    ax = policy.model_axis
+    return Repartition(Layout(ax, 2), Layout(ax, dim))
+
+
+def _prefill_cache_tp(k, v, cache, index: int, policy):
+    """This rank's heads of the prompt's K/V, (B, S, KH/tp, hd), into its
+    part of the cache: under ``kvdim`` the head_dim split (B, S, KH,
+    hd/tp) into the first S positions; under ``kvseq`` the sequence split
+    of the whole (padded) buffer, (B, S_buf, KH, hd) a rank, zeros past
+    the prompt."""
+    if policy.kv_layout == "kvdim":
+        move = _heads_to(3, policy)
+        for name, t in (("k", k), ("v", v)):
+            cache[name][index][:, :t.shape[1]] = move(t)
+        return
+    move = _heads_to(1, policy)
+    for name, t in (("k", k), ("v", v)):
+        buf = cache[name][index]
+        full = t.new_zeros((t.shape[0], buf.shape[1] * policy.model_size)
+                           + t.shape[2:])
+        full[:, :t.shape[1]] = t
+        buf.copy_(move(full))
+
+
+def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy):
+    """One token's attention, (B, 1, H/tp, hd) -> (B, 1, H/tp, hd), this
+    rank's heads of q, k, v against the sharded cache (module docstring).
+    Scores, softmax and the p.v contraction in fp32, as
+    ``decode_attention``."""
+    ax = policy.model_axis
+    tp = policy.model_size
+    B, _, h_loc, hd = q.shape
+    kh_loc = k.shape[2]
+    H, KH = h_loc * tp, kh_loc * tp
+    group = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    k_cache, v_cache = cache["k"][index], cache["v"][index]
+    qkv = torch.cat([q, k, v], dim=2)          # (B, 1, (H + 2KH)/tp, hd)
+    if policy.kv_layout == "kvdim":
+        # one all-to-all moves q, k and v to the head_dim split; the
+        # blocks arrive rank-major, each rank's heads in global order
+        d_loc = hd // tp
+        moved = _heads_to(3, policy)(qkv).reshape(B, 1, tp, -1, d_loc)
+        q = moved[:, :, :, :h_loc].reshape(B, H, d_loc)
+        k = moved[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, d_loc)
+        v = moved[:, :, :, h_loc + kh_loc:].reshape(B, KH, d_loc)
+        k_cache[:, cache_len] = k
+        v_cache[:, cache_len] = v
+        qf = q.reshape(B, KH, group, d_loc).float()
+        s = prim.all_reduce(torch.einsum("bkgh,bskh->bkgs", qf,
+                                         k_cache.float()), ax) * scale
+        S = k_cache.shape[1]
+        valid = torch.arange(S, device=q.device) < cache_len + 1
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskh->bkgh", p.to(q.dtype).float(),
+                         v_cache.float())
+        o = o.reshape(B, 1, H, d_loc).to(q.dtype)
+        return Repartition(Layout(ax, 3), Layout(ax, 2))(o)
+    # kvseq: q, k, v gathered whole; the owner of position cache_len
+    # writes it; every rank attends over its own block (flash-decoding)
+    whole = prim.all_gather(qkv, ax, 2).reshape(B, 1, tp, -1, hd)
+    q = whole[:, :, :, :h_loc].reshape(B, H, hd)
+    k = whole[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, hd)
+    v = whole[:, :, :, h_loc + kh_loc:].reshape(B, KH, hd)
+    blk = k_cache.shape[1]
+    me = prim.axis_index(ax)
+    if cache_len // blk == me:
+        k_cache[:, cache_len % blk] = k
+        v_cache[:, cache_len % blk] = v
+    qf = q.reshape(B, KH, group, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()) * scale
+    pos = me * blk + torch.arange(blk, device=q.device)
+    s = torch.where(pos < cache_len + 1, s, torch.full_like(s, NEG_INF))
+    m = prim.pmax(s.amax(dim=-1, keepdim=True), ax)
+    p = torch.exp(s - m)
+    part = torch.cat([torch.einsum("bkgs,bskh->bkgh", p.to(q.dtype).float(),
+                                   v_cache.float()),
+                      p.sum(dim=-1, keepdim=True)], dim=-1)
+    part = prim.all_reduce(part, ax)           # (B, KH, g, hd + 1)
+    o = (part[..., :hd] / part[..., hd:]).reshape(B, 1, H, hd).to(q.dtype)
+    return o[:, :, me * h_loc:(me + 1) * h_loc]

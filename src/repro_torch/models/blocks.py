@@ -9,7 +9,11 @@ Given a ``policy`` with ``explicit_tp``, ``sublayer_apply`` runs the
 attention+MLP sublayer in train mode as ONE ``dist_jit`` region over the
 policy's model axis (``_tp_sublayer_apply``): the residual stream enters
 feature-sharded and the four projections ride the ring matmuls.  An MoE
-FFN with a policy runs ``moe_apply``'s own region.
+FFN with a policy runs ``moe_apply``'s own region.  In prefill and
+decode a policy means sharded serving (``check_serve_policy``): every
+rank holds its own shards and runs ``_tp_sublayer_body`` on its blocks,
+whatever ``explicit_tp`` says (it picks the ring matmuls or the plain
+gather and scatter), the cache sharded by ``policy.kv_layout``.
 ``pipeline_stage_body`` is one pipeline stage on local blocks, run by the
 executor of ``core/pipeline.py``.
 """
@@ -56,12 +60,52 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
     return p
 
 
+def check_serve_policy(cfg, policy):
+    """Refuse what sharded serving does not cover: a mesh axis besides
+    ``data`` and ``model`` (``ValueError``); SSM mixers, MoE FFNs and
+    widths the model axis does not divide (``NotImplementedError``; the
+    reference serves the first two through GSPMD, ROADMAP Queue 1 item
+    13); a ``kvdim`` cache whose head_dim the model axis does not divide;
+    a ``kv_layout`` other than ``kvdim`` and ``kvseq``."""
+    extra = [n for n in policy.axis_names
+             if n not in (policy.data_axis, policy.model_axis)
+             and policy.axis_size(n) > 1]
+    if extra:
+        raise ValueError(f"sharded serving runs over (data, model); the "
+                         f"mesh also has {extra}")
+    kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
+    other = sorted(k for k in kinds if k not in (("attn", "mlp"),
+                                                 ("attn", "none")))
+    if other:
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name}'s {other} sublayers is not "
+            f"ported (ROADMAP Queue 1 item 13: SSM mixers and MoE FFNs "
+            f"under a serve policy); serve it with policy=None")
+    tp = policy.model_size
+    widths = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+              "d_model": cfg.d_model, "d_ff": cfg.d_ff}
+    if policy.kv_layout == "kvdim":
+        widths["head_dim (kvdim)"] = cfg.resolved_head_dim
+    bad = {k: v for k, v in widths.items() if v % tp}
+    if bad:
+        raise NotImplementedError(
+            f"sharded serving splits heads, d_model and d_ff over the "
+            f"model axis: {bad} not divisible by its size {tp} (ROADMAP "
+            f"Queue 1 item 13)")
+    if policy.kv_layout not in ("kvdim", "kvseq"):
+        raise ValueError(f"kv_layout {policy.kv_layout!r}: kvdim or kvseq")
+
+
 def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:
     """The explicit-TP fused path covers the attention+MLP sublayer in
-    training; everything else (SSM, MoE, prefill/decode caching) keeps the
-    single-device path.  Unlike the reference's, the fused body attends
-    through ``ops.flash_attention`` as the port's ``attention_block`` does,
-    so there is no flash request for it to refuse."""
+    training, and every sublayer in prefill and decode under a policy
+    (sharded serving, which ``check_serve_policy`` holds to attention +
+    MLP); everything else (SSM, MoE) keeps the single-device path.  Unlike
+    the reference's, the fused body attends through ``ops.flash_attention``
+    as the port's ``attention_block`` does, so there is no flash request
+    for it to refuse."""
+    if policy is not None and mode != "train":
+        return True
     if policy is None or not getattr(policy, "explicit_tp", False):
         return False
     if mode != "train" or mixer != "attn" or ffn not in ("mlp", "none"):
@@ -71,15 +115,18 @@ def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:
             and cfg.num_kv_heads % tp == 0 and cfg.d_ff % tp == 0)
 
 
-def _tp_sublayer_body(p, x, positions, cfg, policy, ffn):
+def _tp_sublayer_body(p, x, positions, cfg, policy, ffn, *, mode="train",
+                      cache=None, index: int = 0, cache_len=None):
     """Whole sublayer on local blocks: ONE region spans both the attention
     and FFN halves, so their four ring matmuls (qkv-gather, out-scatter,
     up-gather, down-scatter) can overlap compute across the halves.
-    x: (B_loc, S, d_model/tp)."""
+    x: (B_loc, S, d_model/tp).  In prefill and decode (sharded serving)
+    ``cache``/``index``/``cache_len`` reach ``attention_block_tp``."""
     ax = policy.model_axis
     h = rmsnorm_sharded(x, p["norm_mixer"], ax)
     x = x + attention_block_tp(subtree(p, "attn"), h, cfg, policy,
-                               positions=positions)
+                               positions=positions, mode=mode, cache=cache,
+                               index=index, cache_len=cache_len)
     if ffn == "mlp":
         h = rmsnorm_sharded(x, p["norm_ffn"], ax)
         mp = subtree(p, "mlp")
@@ -133,7 +180,10 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     sublayer runs as one region over its model axis
     (``_tp_sublayer_apply``); an MoE FFN with a policy runs
     ``moe_apply``'s region.  x, positions and p are then the global
-    values, the same on every rank of the policy's mesh.  ``ctx_axis``:
+    values, the same on every rank of the policy's mesh.  In prefill and
+    decode a policy means sharded serving: p and x are this rank's blocks
+    (x feature-sharded), run by ``_tp_sublayer_body`` inside the caller's
+    region, and the cache is this rank's part.  ``ctx_axis``:
     the live ctx axis when x is this rank's sequence shard inside a region
     (the pipeline stage body); attention then rings over it and
     ``positions`` must be global.
@@ -141,6 +191,10 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     mixer, ffn = layer_kinds(cfg, layer)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _tp_fusable(cfg, policy, mixer, ffn, mode):
+        if mode != "train":
+            return _tp_sublayer_body(p, x, positions, cfg, policy, ffn,
+                                     mode=mode, cache=cache, index=index,
+                                     cache_len=cache_len), None, aux
         return _tp_sublayer_apply(p, x, cfg, policy, positions=positions,
                                   ffn=ffn), None, aux
     h = rmsnorm(x, p["norm_mixer"])

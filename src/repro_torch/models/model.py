@@ -1,10 +1,15 @@
 """DecoderLM: the decoder-only model (mirrors ``repro/models/model.py``).
 
-Dense, MoE (kimi, llama4), hybrid (jamba) and SSM (mamba2) architectures;
-``embeds`` frontends raise ``NotImplementedError`` naming their ROADMAP
-item.  The superblock parameters are stacked on a leading dim, as the
-reference's scan layout (``model.py:32``), and applied by a Python loop.  The pipeline cut
-(``to_pipeline_params`` ... ``pipeline_fns``) feeds ``core/pipeline.py``.
+Dense, MoE (kimi, llama4), hybrid (jamba), SSM (mamba2) and stub-frontend
+(musicgen, pixtral: ``{"embeds": (B, S, d)}`` in place of tokens)
+architectures.  The superblock parameters are stacked on a leading dim, as
+the reference's scan layout (``model.py:32``), and applied by a Python
+loop.  The pipeline cut (``to_pipeline_params`` ... ``pipeline_fns``)
+feeds ``core/pipeline.py``.  Sharded serving over a (data, model) mesh
+(``forward(..., policy=)`` in prefill and decode) runs on each rank's
+shards: ``shard_params`` cuts them from the global tree,
+``init_rank_params`` draws them on the rank's card alone, and
+``init_cache(..., policy=)`` allocates the rank's part of the cache.
 
 Modes:
   train   — full sequence, returns logits
@@ -14,15 +19,21 @@ Modes:
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import layers as L
+from repro_torch.core import primitives as prim
+from repro_torch.core.compile import local_blocks, region
 from repro_torch.device import resolve_device
-
 from repro_torch.sharding import Partitioned
 
-from .blocks import pipeline_stage_body, superblock_apply, superblock_init
-from .common import dense_init, rmsnorm, subtree
+from .blocks import (check_serve_policy, pipeline_stage_body,
+                     superblock_apply, superblock_init)
+from .common import dense_init, normal_init, rmsnorm, subtree
 from .moe import EXPERT_LEAVES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -210,20 +221,41 @@ def pipeline_fns(cfg, policy, aux_weight: float = 0.01):
     return pre_fn, stage_fn, logits_fn
 
 
-def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
+def init_cache(cfg, batch: int, max_seq: int, device=None,
+               policy=None) -> dict:
     """Zeroed decode caches, stacked per superblock as the reference's scan
     layout (``model.py:212-230``): for an attention position
     ``pos{i}.k``/``pos{i}.v`` (n_super, B, max_seq, KH, hd) in ``cfg.dtype``;
     for an SSM position ``pos{i}.conv`` (n_super, B, k-1, d_inner) in
-    ``cfg.dtype`` and ``pos{i}.ssm`` (n_super, B, H, P, N) in float32."""
+    ``cfg.dtype`` and ``pos{i}.ssm`` (n_super, B, H, P, N) in float32.
+
+    With a serve ``policy``, this rank's part of the global ``batch``'s
+    cache: B / data rows, and under ``kvdim`` head_dim / model columns
+    (n_super, B/dp, max_seq, KH, hd/tp); under ``kvseq`` one contiguous
+    block of ceil(max_seq / tp) positions (n_super, B/dp, ceil(max_seq /
+    tp), KH, hd).  Where tp does not divide max_seq the blocks cover a
+    buffer rounded up to a multiple of tp (GSPMD pads the reference's the
+    same way); decode masks every position past ``cache_len``, the padding
+    included."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     n_super = cfg.num_layers // cfg.block_period
+    hd = cfg.resolved_head_dim
+    if policy is not None:
+        check_serve_policy(cfg, policy)
+        dp, tp = policy.dp_size, policy.model_size
+        if batch % dp:
+            raise ValueError(f"batch {batch} not divisible by the data "
+                             f"axis's size {dp}")
+        batch //= dp
+        if policy.kv_layout == "kvdim":
+            hd //= tp
+        else:
+            max_seq = -(-max_seq // tp)
     cache = {}
     for i in range(cfg.block_period):
         if cfg.mixer_kind(i) == "attn":
-            shape = (n_super, batch, max_seq, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
+            shape = (n_super, batch, max_seq, cfg.num_kv_heads, hd)
             for name in ("k", "v"):
                 cache[f"pos{i}.{name}"] = torch.zeros(shape, dtype=dtype,
                                                       device=device)
@@ -237,49 +269,145 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
     return cache
 
 
+# ---------------------------------------------------------------------------
+# Sharded serving: this rank's parameters.  Heads and d_ff split over the
+# model axis as the TP train path splits them (column blocks of wq, wk, wv,
+# w_up, w_gate; row blocks of wo, w_down; the sublayer norms' weights with
+# the feature-sharded residual); the embedding, final norm and head whole.
+# ---------------------------------------------------------------------------
+
+_SERVE_SPLIT = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_up": 2,
+                "w_gate": 2, "w_down": 1, "norm_mixer": 1, "norm_ffn": 1}
+
+
+def _serve_split(key: str) -> int | None:
+    """The dim of leaf ``key`` split over ``model`` (None: whole)."""
+    if not key.startswith("blocks."):
+        return None
+    return _SERVE_SPLIT.get(key.rsplit(".", 1)[-1])
+
+
+def serve_param_parts(params) -> dict:
+    """``Partitioned`` declarations of a global params dict for sharded
+    serving: each ``blocks.*`` leaf (n_super, ...) split over ``model``
+    along the dim ``_SERVE_SPLIT`` names, every other leaf whole."""
+    return {k: Partitioned() if (dim := _serve_split(k)) is None
+            else Partitioned(*([None] * dim + ["model"])) for k in params}
+
+
+def shard_params(cfg, params, policy) -> dict:
+    """This rank's shards of the GLOBAL ``params`` (``init_params``'s tree,
+    the same on every rank) for sharded serving under ``policy``.  A
+    split leaf is a fresh contiguous copy; a whole one is the leaf
+    itself."""
+    check_serve_policy(cfg, policy)
+    blocks = local_blocks(serve_param_parts(params), params, policy)
+    return {k: v.contiguous() for k, v in blocks.items()}
+
+
+def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
+    """This rank's shards for sharded serving, drawn on ``device`` alone
+    (a model too large for one card or host is never built whole), at
+    ``init_params``'s distributions.  Two explicit ``torch.Generator``s on
+    ``device``: one seeded ``seed`` for the whole leaves, the same on every
+    rank, and one seeded ``seed + 1 + model index`` for the split ones, so
+    the data replicas hold the same shards.  The values are not
+    ``init_params(seed)``'s cut (that would need the whole draw).  The
+    leaves and their global shapes are ``init_params``' own
+    (``launch.specs.param_specs``, nothing allocated): the norm weights
+    ones in fp32, every other leaf N(0, 1/d_in) in ``dtype``, d_in the
+    global leaf's second-last dim."""
+    from repro_torch.launch.specs import param_specs
+    check_serve_policy(cfg, policy)
+    device = resolve_device(device)
+    dtype = dtype or DTYPES[cfg.dtype]
+    tp = policy.model_size
+    with prim.use_mesh(policy.mesh):
+        me = prim.axis_index(policy.model_axis)
+    whole = torch.Generator(device=device).manual_seed(seed)
+    mine = torch.Generator(device=device).manual_seed(seed + 1 + me)
+    out = {}
+    for key, like in param_specs(cfg).items():
+        shape, dim = tuple(like.shape), _serve_split(key)
+        split = dim is not None
+        if split:
+            shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
+        if key.rsplit(".", 1)[-1].startswith("norm"):
+            out[key] = torch.ones(shape, dtype=torch.float32, device=device)
+            continue
+        stacked = key.startswith("blocks.")
+        out[key] = normal_init(shape[1:] if stacked else shape,
+                               1 / math.sqrt(like.shape[-2]), dtype,
+                               mine if split else whole,
+                               stacked=shape[0] if stacked else 0)
+    return out
+
+
 def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
     """Returns (logits, new_cache, aux_loss).
 
-    batch: ``{"tokens": (B, S) integer}``; decode additionally takes
-    ``{"cache_len": int}`` and S == 1.  In prefill ``new_cache`` holds the
-    prompt's K/V stacked ``(n_super, B, S, KH, hd)`` and the conv and SSM
-    states after the prompt, stacked ``(n_super, ...)``; in decode it is
-    ``cache``, every leaf updated in place.  ``aux_loss`` is the MoE
-    load-balance loss summed over the layers (fp32; 0 without MoE).
-    ``policy`` (train mode, every rank of its mesh calling with the same
+    batch: ``{"tokens": (B, S) integer}``, or ``{"embeds": (B, S, d)}``
+    for the stub frontends (cast to ``cfg.dtype``, no lookup); decode
+    additionally takes ``{"cache_len": int}`` and S == 1.  In prefill
+    ``new_cache`` holds the prompt's K/V stacked ``(n_super, B, S, KH,
+    hd)`` and the conv and SSM states after the prompt, stacked
+    ``(n_super, ...)``; in decode it is ``cache``, every leaf updated in
+    place.  ``aux_loss`` is the MoE load-balance loss summed over the
+    layers (fp32; 0 without MoE).
+
+    ``policy`` in train mode (every rank of its mesh calling with the same
     global batch): each sublayer runs as ``sublayer_apply`` runs it with a
     policy.  Under a live ctx axis the regions cut the sequence and the
     global positions together, and attention rings over the axis.
+
+    ``policy`` in prefill and decode is sharded serving over its (data,
+    model) mesh (``blocks.check_serve_policy``), every rank calling
+    together: ``params`` are this rank's shards (``shard_params``,
+    ``init_rank_params``), ``batch`` this rank's rows, ``cache`` this
+    rank's part of ``init_cache(..., policy=)``, which prefill fills in
+    place as decode does; the logits are this rank's rows.  The residual
+    runs feature-sharded over the model axis, as the TP train sublayer's,
+    and is gathered whole for the final norm and the head.
     """
+    serving = policy is not None and mode != "train"
+    if serving:
+        check_serve_policy(cfg, policy)
+        if cache is None:
+            raise ValueError("sharded prefill writes into a cache: pass "
+                             "init_cache(..., policy=policy)")
     if "embeds" in batch:
-        raise NotImplementedError(
-            "embeds frontends are not ported yet (ROADMAP Queue 1, "
-            "\"Serving, the rest\": the stub frontends)")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
+        x = batch["embeds"]
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"])
+    x = x.to(DTYPES[cfg.dtype])
+    B, S = x.shape[:2]
     cache_len = int(batch.get("cache_len", 0))
     if mode == "decode":
-        positions = torch.full((B, 1), cache_len, device=tokens.device)
+        positions = torch.full((B, 1), cache_len, device=x.device)
     else:
-        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
-    # unbind, not v[s]: in train mode each stacked leaf's grad is then one
-    # stack of the per-superblock grads, not n_super full-size zero-padded
-    # grads summed
-    layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
-    n_super = cfg.num_layers // cfg.block_period
-    kv_per_block = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s in range(n_super):
-        p_blk = {k: v[s] for k, v in layers.items()}
-        x, kv, aux_s = superblock_apply(p_blk, x, cfg, positions=positions,
-                                        mode=mode, cache=cache, index=s,
-                                        cache_len=cache_len, policy=policy)
-        kv_per_block.append(kv)
-        aux = aux + aux_s
+    with region(policy) if serving else contextlib.nullcontext():
+        if serving:
+            x = L.shard_slice(x, policy.model_axis, 2)
+        # unbind, not v[s]: in train mode each stacked leaf's grad is then
+        # one stack of the per-superblock grads, not n_super full-size
+        # zero-padded grads summed
+        layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
+        n_super = cfg.num_layers // cfg.block_period
+        kv_per_block = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(n_super):
+            p_blk = {k: v[s] for k, v in layers.items()}
+            x, kv, aux_s = superblock_apply(p_blk, x, cfg, positions=positions,
+                                            mode=mode, cache=cache, index=s,
+                                            cache_len=cache_len, policy=policy)
+            kv_per_block.append(kv)
+            aux = aux + aux_s
+        if serving:
+            x = prim.all_gather(x, policy.model_axis, 2)
 
-    if mode == "prefill":
+    if mode == "prefill" and not serving:
         new_cache = {k: torch.stack([kv[k] for kv in kv_per_block])
                      for k in kv_per_block[0]}
     else:

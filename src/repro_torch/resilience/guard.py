@@ -17,6 +17,9 @@ reference, and the only all-reduce the guard adds.  Every rank reads the
 same bit, so every rank skips or none does.  ``combine_flags`` takes the
 max over ``virtual_dp`` passes.  Where the reference selects with
 ``tree_where`` inside the compiled step, the port does not run the update.
+The same all-reduce carries a recoverable fault that one rank raised
+outside the step (``train/loop.py::run``): that rank's flag is
+:data:`HOST_FAULT`, so every rank reads it at the same step and skips.
 
 - :func:`nonfinite_count`: count of non-finite values in a tree.
 - :func:`nonfinite_flag`: its one-bit form.
@@ -32,8 +35,11 @@ import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["nonfinite_count", "nonfinite_flag", "combine_flags",
+__all__ = ["HOST_FAULT", "nonfinite_count", "nonfinite_flag", "combine_flags",
            "tree_where", "apply_guard"]
+
+
+HOST_FAULT = 2   # a rank's flag when it holds a fault from outside the step
 
 
 def nonfinite_count(tree) -> torch.Tensor:

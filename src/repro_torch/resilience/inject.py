@@ -204,7 +204,8 @@ def corrupt_checkpoint(ckpt_dir: str, step: int | None = None, *,
 class FaultInjector:
     """Host-side wrapper turning a :class:`FaultPlan` into live faults.
 
-    Callable as a train step: ``injector(state, batch)``.  Reads the step
+    Callable as a train step: ``injector(state, batch, **kw)``, the
+    keywords passed on to the step it runs.  Reads the step
     number from ``state["step"]`` (an int), consults the plan, and either
     sleeps (slow), raises :class:`DeviceLossError` (shrink) or
     :class:`InjectedCrash` (crash, damaging the newest checkpoint first
@@ -240,7 +241,7 @@ class FaultInjector:
             self.poisoned_step_fn = poisoned_step_fn
         return self
 
-    def __call__(self, state, batch):
+    def __call__(self, state, batch, **kw):
         step = int(state["step"])
         if self._fires("slow", step, self.plan.slow_at):
             time.sleep(self.plan.slow_seconds)
@@ -262,5 +263,5 @@ class FaultInjector:
                 raise ValueError(
                     "FaultPlan poisons gradients but no poisoned_step_fn was "
                     "built (pass fault_hook=nan_grad_hook(...) to build_train_step)")
-            return self.poisoned_step_fn(state, batch)
-        return self.step_fn(state, batch)
+            return self.poisoned_step_fn(state, batch, **kw)
+        return self.step_fn(state, batch, **kw)

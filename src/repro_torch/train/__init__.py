@@ -2,6 +2,7 @@ from .loop import (  # noqa: F401
     RECOVERABLE,
     History,
     LoopConfig,
+    MeshFault,
     NonFiniteStreakError,
     StragglerMonitor,
     elastic_restart_on_failure,

@@ -20,9 +20,20 @@ gradient accumulation (DESIGN §10).
 
 On a mesh the loop runs on every rank (``policy``, ``parts``: the step's
 mesh and its parameters' partition declaration, where the reference takes
-``shardings``), and every rank sees each planned fault at the same step,
-so every rank restarts from the same checkpoint (the verdicts are agreed
-over the mesh, ``checkpoint/ckpt.py``).
+``shardings``), and no rank restarts alone: a restart pairs every rank's
+next collective with its peers', so the supervisors restart the mesh only
+on a fault every rank raises at the same step.  The plan's faults and a
+non-finite streak are such by construction (every rank runs the same plan;
+the guard's flag is agreed).  A recoverable fault that one rank raises
+outside the step (the ``fail_at_step`` hook, the logger, a checkpoint
+write) is held by ``run`` and carried to every rank by the next step's
+guard all-reduce (or the loop's closing agreement), so every rank raises
+:class:`MeshFault` at the same step; the groups stay intact and the
+restart waits on no timeout, on NCCL as on gloo.  Every rank then restores
+the same checkpoint (the verdicts are agreed over the mesh,
+``checkpoint/ckpt.py``).  A fault raised inside a step on one rank alone
+cannot be carried (its peers wait in a collective it never joins): it
+ends the run, as any fault outside the recoverable set does.
 
 Straggler mitigation: an EWMA step-time monitor flags steps slower than
 ``factor`` x the moving average.  ``run`` and the supervisors return a
@@ -32,6 +43,7 @@ counters an operator would page on.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import random as _random
 import time
@@ -64,6 +76,27 @@ class NonFiniteStreakError(RuntimeError):
             f"non-finite gradients for {streak} consecutive steps "
             f"({first_step}..{last_step})")
         self.first_step, self.last_step, self.streak = first_step, last_step, streak
+
+
+class MeshFault(RuntimeError):
+    """A recoverable fault that one rank raised outside the step, agreed
+    over the mesh: ``run`` raises it on every rank at the same step
+    (``held``: the fault this rank saw, empty on its peers)."""
+
+    def __init__(self, step: int, held):
+        what = (f"{type(held[0]).__name__}: {held[0]}" if held
+                else "a peer's recoverable fault")
+        super().__init__(f"{what} (agreed over the mesh at step {step})")
+
+
+@contextlib.contextmanager
+def _holding(held: list, types):
+    """Run the body; a fault of ``types`` it raises is appended to
+    ``held`` instead of propagating (``types=()`` holds nothing)."""
+    try:
+        yield
+    except types as e:
+        held.append(e)
 
 
 @dataclass
@@ -101,7 +134,7 @@ def _sync(t):
 
 def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
         history: History | None = None, data_offset: int = 0, policy=None,
-        parts=None):
+        parts=None, recoverable=()):
     """Run the step loop from ``state``; returns (state, history).
 
     ``data_offset`` shifts the stateless data addressing: step ``i``
@@ -111,10 +144,20 @@ def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
     ``ckpt_every`` steps the state is saved (async unless
     ``async_ckpt=False``; on ``policy``'s mesh under ``parts``), and
     pending saves are joined before returning.
+
+    On a mesh, a fault of ``recoverable`` that this rank raises outside
+    the step (the ``fail_at_step`` hook, the logger, a save or a failed
+    async write) is held: the next step carries it to every rank through
+    the guard's all-reduce (``train_step(state, batch, fault=True)``; see
+    ``build_hybrid_train_step``) and the loop's end through one agreement
+    (``checkpoint.settle``), and every rank raises :class:`MeshFault`
+    there.  Off a mesh it is raised at once.
     """
     monitor = StragglerMonitor()
     if history is None:
         history = History()
+    held: list = []
+    hold = recoverable if policy is not None else ()
     start = int(state["step"])
     streak_first = None
     streak = 0
@@ -124,10 +167,15 @@ def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
             raise RuntimeError(f"data iterator at batch {data_step}, loop at "
                                f"step {step} with offset {data_offset}")
         t0 = time.perf_counter()
-        if loop_cfg.fail_at_step is not None and step == loop_cfg.fail_at_step:
-            raise RuntimeError(f"injected fault at step {step}")
-        state, metrics = train_step(state, batch)
+        with _holding(held, hold):
+            if (loop_cfg.fail_at_step is not None
+                    and step == loop_cfg.fail_at_step):
+                raise RuntimeError(f"injected fault at step {step}")
+        state, metrics = (train_step(state, batch, fault=True) if held
+                          else train_step(state, batch))
         _sync(metrics["loss"])
+        if metrics.pop("fault", 0):
+            raise MeshFault(step, held) from (held[0] if held else None)
         dt = time.perf_counter() - t0
         slow = monitor.observe(dt)
         rec = {k: float(v) for k, v in metrics.items()}
@@ -139,24 +187,34 @@ def run(state, train_step, data_iter, loop_cfg: LoopConfig, *, logger=print,
             history.health["skipped_steps"] += 1
             streak_first = step if streak == 0 else streak_first
             streak += 1
-            logger(f"step {step:5d}  non-finite gradients: step SKIPPED "
-                   f"(streak {streak})")
+            with _holding(held, hold):
+                logger(f"step {step:5d}  non-finite gradients: step SKIPPED "
+                       f"(streak {streak})")
             if (loop_cfg.rollback_after_skips
                     and streak >= loop_cfg.rollback_after_skips):
                 raise NonFiniteStreakError(streak_first, step, streak)
         else:
             streak = 0
         if step % loop_cfg.log_every == 0 or slow:
-            logger(f"step {step:5d}  loss {rec['loss']:.4f}  "
-                   f"gnorm {rec['grad_norm']:.3f}  {dt*1e3:.0f} ms"
-                   + ("  [STRAGGLER]" if slow else ""))
+            with _holding(held, hold):
+                logger(f"step {step:5d}  loss {rec['loss']:.4f}  "
+                       f"gnorm {rec['grad_norm']:.3f}  {dt*1e3:.0f} ms"
+                       + ("  [STRAGGLER]" if slow else ""))
         if (loop_cfg.ckpt_dir and loop_cfg.ckpt_every
                 and (step + 1) % loop_cfg.ckpt_every == 0):
             saver = (ckpt_lib.save_async if loop_cfg.async_ckpt
                      else ckpt_lib.save)
-            saver(loop_cfg.ckpt_dir, step + 1, state, keep=loop_cfg.keep,
-                  policy=policy, parts=parts)
-    ckpt_lib.wait_pending()
+            with _holding(held, hold):
+                saver(loop_cfg.ckpt_dir, step + 1, state, keep=loop_cfg.keep,
+                      policy=policy, parts=parts)
+        if policy is not None:
+            with _holding(held, hold):
+                ckpt_lib.check_pending()
+    with _holding(held, hold):
+        ckpt_lib.wait_pending()
+    if policy is not None and ckpt_lib.settle(policy, fault=bool(held)):
+        raise MeshFault(loop_cfg.total_steps, held) from (
+            held[0] if held else None)
     return state, history
 
 
@@ -226,6 +284,9 @@ def restart_on_failure(make_state, train_step, make_data_iter,
     """Supervised retry loop: the single-process analogue of a cluster
     restart, and on a mesh (``policy``, ``parts``) its per-rank form.
 
+    On a mesh it restarts only on faults every rank raised at the same
+    step (:func:`_agreed`; ``run`` carries a recoverable fault one rank
+    raised outside the step to every rank), so no rank restarts alone.
     On a recoverable failure: restore the newest checkpoint that passes
     verification (corrupt ones are quarantined as ``.corrupt`` and the
     previous intact one is used, DESIGN §9), back off with seeded jittered
@@ -250,7 +311,7 @@ def restart_on_failure(make_state, train_step, make_data_iter,
         try:
             return run(state, train_step, data_iter, loop_cfg, logger=logger,
                        history=history, data_offset=data_offset,
-                       policy=policy, parts=parts)
+                       policy=policy, parts=parts, recoverable=recoverable)
         except NonFiniteStreakError as e:
             restarts += 1
             history.health["rollbacks"] += 1
@@ -265,6 +326,8 @@ def restart_on_failure(make_state, train_step, make_data_iter,
             if restarts >= max_restarts:
                 raise
         except recoverable as e:
+            if not _agreed(e, policy):
+                raise
             restarts += 1
             history.health["restarts"] += 1
             logger(f"failure: {e}; restart {restarts}/{max_restarts}")
@@ -279,6 +342,18 @@ def restart_on_failure(make_state, train_step, make_data_iter,
         state = None
         _backoff(restarts, rng, history, sleep, backoff_base, backoff_max,
                  backoff_jitter)
+
+
+def _agreed(e, policy) -> bool:
+    """Whether every rank of ``policy``'s mesh raised ``e`` at the same
+    step (always true off a mesh): a fault ``run`` carried
+    (:class:`MeshFault`), the plan's (every rank runs the same plan) or a
+    non-finite streak (the guard's flag is agreed).  Any other fault may
+    be this rank's alone, its peers waiting in a collective it left, so
+    the supervisors do not restart on it."""
+    from repro_torch.resilience.inject import DeviceLossError, InjectedCrash
+    return policy is None or isinstance(
+        e, (MeshFault, NonFiniteStreakError, InjectedCrash, DeviceLossError))
 
 
 def _restart_point(loop_cfg: LoopConfig, policy=None) -> int:
@@ -323,7 +398,8 @@ def elastic_restart_on_failure(make_setup, make_data_iter,
     ``make_setup(factorization, devices, virtual_dp)`` returns ``(policy,
     parts, make_state, step_fn, poisoned_step_fn)`` (the last may be None);
     ``devices=None`` means every rank of the current world.  Other
-    recoverable failures restart on the current (possibly degraded) mesh.
+    recoverable failures that every rank raised at the same step
+    (:func:`_agreed`) restart on the current (possibly degraded) mesh.
     Health adds ``mesh_shrinks`` to the usual counters.
     """
     from repro_torch.launch.mesh import (shrink_factorization, shrink_world,
@@ -349,7 +425,7 @@ def elastic_restart_on_failure(make_setup, make_data_iter,
         try:
             return run(state, train_step, data_iter, loop_cfg, logger=logger,
                        history=history, data_offset=data_offset,
-                       policy=policy, parts=parts)
+                       policy=policy, parts=parts, recoverable=recoverable)
         except DeviceLossError as e:
             restarts += 1
             history.health["restarts"] += 1
@@ -371,6 +447,8 @@ def elastic_restart_on_failure(make_setup, make_data_iter,
             if restarts >= max_restarts:
                 raise
         except recoverable as e:
+            if not _agreed(e, policy):
+                raise
             restarts += 1
             history.health["restarts"] += 1
             logger(f"failure: {e}; restart {restarts}/{max_restarts}")

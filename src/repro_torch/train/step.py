@@ -36,8 +36,8 @@ from repro_torch.core.compile import local_blocks, region, resolve_parts
 from repro_torch.models import forward
 from repro_torch.models.model import DTYPES
 from repro_torch.optim.optimizers import global_norm
-from repro_torch.resilience.guard import (apply_guard, combine_flags,
-                                          nonfinite_flag)
+from repro_torch.resilience.guard import (HOST_FAULT, apply_guard,
+                                          combine_flags, nonfinite_flag)
 from repro_torch.sharding import Partitioned
 
 
@@ -275,7 +275,11 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
     non-finite flag agreed over the whole mesh by ONE max all-reduce, the
     only all-reduce the guard adds; on flag 1 no rank runs the update, so
     params and moments stay bitwise unchanged, ``skipped_steps``
-    increments and ``step`` advances.  ``fault_hook(grads) -> grads`` is
+    increments and ``step`` advances.  ``train_step(state, batch,
+    fault=True)``, on a rank that holds a fault from outside the step
+    (``train/loop.py::run``), sends ``HOST_FAULT`` in that all-reduce: every
+    rank then skips the update and returns ``metrics["fault"] = 1``, so all
+    raise at the same step.  ``fault_hook(grads) -> grads`` is
     applied to the reduced gradients before the flag (the fault-injection
     point).  Raises ``ValueError`` when the batch does not divide by
     microbatches x dp x virtual_dp x ep or the sequence by cp.
@@ -299,7 +303,7 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
     weights = _replication(parts, policy)
     M = num_microbatches
 
-    def train_step(state, batch):
+    def train_step(state, batch, fault=False):
         params = state["params"]
         device = next(iter(params.values())).device
         batch = batch_to_device(batch, device)
@@ -322,7 +326,7 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
             mine = local_blocks(MB_PART, block, policy)
             with region(policy):
                 outs.append(run(params, {"tokens": mine["tokens"]},
-                                mine["labels"]))
+                                mine["labels"], fault=fault))
         if vdp == 1:
             loss, grads = outs[0][0], outs[0][1]
         else:
@@ -346,7 +350,9 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
                 new_params, new_opt = optimizer.update(
                     grads, state["opt"], params, scale=scale)
             new_state = apply_guard(flag, state, new_params, new_opt)
-            metrics["skipped"] = flag
+            metrics["skipped"] = min(flag, 1)
+            if flag >= HOST_FAULT:
+                metrics["fault"] = 1
         else:
             new_params, new_opt = optimizer.update(grads, state["opt"],
                                                    params, scale=scale)

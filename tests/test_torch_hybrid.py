@@ -20,8 +20,11 @@ the same carried-over parameters and data.
 - the guard: a NaN on one rank skips the step on every rank, params and
   moments bitwise unchanged; the guarded step makes exactly one more
   ``torch.distributed.all_reduce`` than the unguarded one.
-- a fault that one rank alone sees ends the run instead of restarting
-  that rank out of step with its peers.
+- a fault that one rank alone sees outside the step (an ``OSError`` in a
+  save, in the reference's recoverable set) is carried to every rank by
+  the guard's all-reduce and restarts the whole mesh from the newest
+  checkpoint, bitwise the fault-free run; a fault outside the set ends
+  the run on every rank.
 - the CLI's ``--device cpu --hybrid-mesh 2,2,1,2,1`` run (its own 8
   spawned ranks), reduced jamba at ``2,1,1,1,4`` and reduced llama4 at
   ``1,1,1,2,4`` (MoE over a live ep axis), and its exits for a sequence
@@ -38,6 +41,7 @@ import torch.distributed as dist
 
 import torch_pipeline_cases as C
 import torch_region_cases as RC
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.core import linop
 from repro_torch.core import primitives as prim
@@ -53,6 +57,7 @@ from repro_torch.sharding import Partitioned, Policy
 from repro_torch.train import (build_hybrid_train_step,
                                build_hybrid_value_and_grad, build_loss_fn,
                                cross_entropy, init_train_state)
+from repro_torch.tree import tree_leaves
 
 CFG = ModelConfig(**C.CFG)
 POOL_TIMEOUT_S = 600
@@ -452,30 +457,117 @@ def test_hybrid_cli_on_the_host(capsys):
     assert hist[0]["bubble_fraction"] == pytest.approx(1 / 3)   # S 2, M 2
 
 
-FAULTY = 3            # the one rank that raises in the fault test
+FAULTY = 3            # the one rank whose save raises in the fault tests
+FAULT_CASES = ("save", "write")
 
 
-def _fault_on_one_rank(rank, world_mesh):
-    """The CLI's per-rank path on (data, pipe, model) = (1, 2, 2) with a
-    fault injected at step 1 (``LoopConfig.fail_at_step``) on rank
-    ``FAULTY`` only; the patch lives in this spawned process alone."""
-    if rank == FAULTY:
-        launch_train.LoopConfig = functools.partial(launch_train.LoopConfig,
-                                                    fail_at_step=1)
-    launch_train.train_hybrid_rank(
+def _failing_saves(rank, case, exc):
+    """Patch this spawned process's checkpoint saves so that the save of
+    step 2 (after step 1) fails once: ``save`` on rank ``FAULTY``, after
+    its part of the save's collectives; ``write`` in the writer's (rank
+    0's) background write.  Returns the undo."""
+    real_async, real_write = ckpt_lib.save_async, ckpt_lib._write
+    fired = []
+
+    def save_async(ckpt_dir, step, *a, **kw):
+        out = real_async(ckpt_dir, step, *a, **kw)
+        if step == 2 and not fired:
+            fired.append(step)
+            raise exc
+        return out
+
+    def write(ckpt_dir, step, *a, **kw):
+        if step == 2 and not fired:
+            fired.append(step)
+            raise exc
+        return real_write(ckpt_dir, step, *a, **kw)
+
+    if case == "save" and rank == FAULTY:
+        ckpt_lib.save_async = save_async
+    if case == "write" and rank == 0:
+        ckpt_lib._write = write
+
+    def undo():
+        ckpt_lib.save_async, ckpt_lib._write = real_async, real_write
+    return undo
+
+
+def _train_faulty(tag, d, logs=None):
+    state, hist, _ = launch_train.train_hybrid_rank(
         reduced(get_config("glm4-9b")), (1, 2, 1, 2, 1), steps=3, batch=4,
-        seq=16, microbatches=2, device="cpu", logger=lambda line: None)
-    dist.barrier()
+        seq=16, microbatches=2, device="cpu", ckpt_dir=f"{d}/{tag}",
+        ckpt_every=1, logger=(logs.append if logs is not None
+                              else lambda line: None))
+    return state, hist
+
+
+def _fault_runs(rank, world_mesh, *, d):
+    """The CLI's per-rank path on (data, pipe, model) = (1, 2, 2) with a
+    checkpoint every step, in one world: without a fault, then with an
+    ``OSError`` in the save of step 2 on one rank for each case of
+    :data:`FAULT_CASES`."""
+    out = {}
+    clean, hist = _train_faulty("clean", d)
+    out["clean"] = [rec["loss"] for rec in hist]
+    for case in FAULT_CASES:
+        undo = _failing_saves(rank, case,
+                              OSError(f"injected {case} failure"))
+        logs = []
+        healed, hist = _train_faulty(case, d, logs)
+        undo()
+        out[case] = {"records": [(rec["step"], rec["loss"])
+                                 for rec in hist],
+                     "failures": [line for line in logs
+                                  if line.startswith("failure")],
+                     "health": hist.health,
+                     "equal": all(
+                         torch.equal(a, b) if isinstance(a, torch.Tensor)
+                         else a == b for a, b in zip(tree_leaves(healed),
+                                                     tree_leaves(clean)))}
+    return out
+
+
+@pytest.fixture(scope="module")
+def fault_runs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("faults"))
+    return tmesh.spawn(functools.partial(_fault_runs, d=d), 4, device="cpu",
+                       timeout_s=300)
+
+
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_fault_on_one_rank_restarts_the_whole_mesh(fault_runs, case):
+    """An ``OSError`` (the reference's recoverable set) in one rank's save
+    of step 2 (``save``: rank FAULTY; ``write``: the writer's background
+    write) heals: the next step's guard all-reduce (or the loop's closing
+    agreement) carries it to every rank, every rank restarts once from
+    the newest verified checkpoint, and every rank's losses (each step's,
+    replays included) and final state are bitwise the fault-free run's.
+    Which checkpoint is newest depends on when the write failure is seen,
+    so the replayed steps may differ between runs."""
+    for r, rank in enumerate(fault_runs):
+        got = rank[case]
+        assert {s for s, _ in got["records"]} == {0, 1, 2}, (r, got)
+        for step, loss in got["records"]:
+            assert loss == rank["clean"][step], (r, step, got, rank["clean"])
+        assert got["equal"], f"rank {r}: final state differs"
+        assert got["health"]["restarts"] == 1, (r, got["health"])
+        if case == "save":    # held after step 1, agreed by step 2's guard
+            assert "at step 2)" in got["failures"][0], (r, got["failures"])
+
+
+def _fatal_fault(rank, world_mesh, *, d):
+    _failing_saves(rank, "save", KeyError("outside the recoverable set"))
+    _train_faulty("keyerror", d)
     return rank
 
 
-def test_fault_on_one_rank_ends_the_run():
-    """A fault that one rank alone sees is not restarted on that rank
-    (its step 0 would pair with its peers' step 1): it ends the run."""
+def test_fault_outside_the_set_ends_the_run(tmp_path):
+    """A ``KeyError`` in one rank's save is not restarted: it ends the run
+    on every rank (``launch.mesh.spawn`` stops the pool)."""
     with pytest.raises(RuntimeError,
-                       match=rf"rank {FAULTY} failed:(.|\n)*injected fault "
-                             r"at step 1"):
-        tmesh.spawn(_fault_on_one_rank, 4, device="cpu", timeout_s=120)
+                       match=rf"rank {FAULTY} failed:(.|\n)*KeyError"):
+        tmesh.spawn(functools.partial(_fatal_fault, d=str(tmp_path)), 4,
+                    device="cpu", timeout_s=300)
 
 
 @pytest.mark.parametrize("arch,mesh", [

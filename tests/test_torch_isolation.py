@@ -11,7 +11,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PORT_EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
                  ROOT / "examples" / "lenet5_distributed_torch.py",
-                 ROOT / "examples" / "train_lm_torch.py"]
+                 ROOT / "examples" / "train_lm_torch.py",
+                 ROOT / "examples" / "serve_lm_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + PORT_EXAMPLES + sorted(
     (ROOT / "tools").glob("*_torch.py"))
@@ -24,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-import lenet5_distributed_torch, quickstart_torch, train_lm_torch
+import lenet5_distributed_torch, quickstart_torch, serve_lm_torch, train_lm_torch
 for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
              "repro_torch.core.overlap", "repro_torch.core.layers",
              "repro_torch.models.lenet", "repro_torch.core.pipeline",

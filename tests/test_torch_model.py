@@ -291,26 +291,34 @@ def test_decode_attention_matches_jax():
 
 
 def test_unported_families_raise():
-    """What the port still lacks raises naming its ROADMAP item: the
-    ``embeds`` frontends (Queue 1, "Serving, the rest").  A pipeline stage
-    over a live ctx axis rings attention now, and refuses an SSM mixer
-    there (the reference scans each shard from zero state).  MoE no longer
-    raises: kimi's and jamba's parameters initialise."""
+    """What the port still lacks raises naming its ROADMAP item: sharded
+    serving of SSM mixers and MoE FFNs (Queue 1 item 13).  The ``embeds``
+    frontends serve now.  A pipeline stage over a live ctx axis rings
+    attention, and refuses an SSM mixer there (the reference scans each
+    shard from zero state).  MoE no longer raises: kimi's and jamba's
+    parameters initialise."""
     cfg = configs.reduced(configs.get_config("glm4-9b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Serving, the rest"):
-        forward(params, {"embeds": torch.zeros(1, 4, cfg.d_model)}, cfg)
+    logits, _, _ = forward(params, {"embeds": torch.zeros(1, 4, cfg.d_model)},
+                           cfg)
+    assert logits.shape == (1, 4, cfg.vocab_size)
 
-    class Mesh:   # a (data, pipe, ctx, model) = (1, 1, 2, 1) mesh's shape
-        mesh_dim_names = ("data", "pipe", "ctx", "model")
+    class Mesh:   # a mesh's shape, without a process group
+        def __init__(self, names, shape):
+            self.mesh_dim_names, self.shape = names, shape
 
         def size(self, dim):
-            return (1, 1, 2, 1)[dim]
+            return self.shape[dim]
 
-    pol = Policy.for_mesh(Mesh())
-    assert pol.active_ctx_axis == "ctx"
     jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
     jp = init_params(jamba, torch.Generator().manual_seed(0), "cpu")
+    serve_pol = Policy.for_mesh(Mesh(("data", "model"), (1, 2)))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        forward(jp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, jamba,
+                mode="prefill", policy=serve_pol)
+
+    pol = Policy.for_mesh(Mesh(("data", "pipe", "ctx", "model"), (1, 1, 2, 1)))
+    assert pol.active_ctx_axis == "ctx"
     p_stage = {k[len("blocks."):]: v for k, v in jp.items()
                if k.startswith("blocks.")}
     with pytest.raises(NotImplementedError, match="zero state"):

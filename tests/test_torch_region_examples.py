@@ -1,8 +1,11 @@
-"""The port's two examples run end to end on the host: the quickstart
-(Eq. 13 and a distributed MLP on 2 x 4 gloo ranks) and the paper's §5
-LeNet-5 experiment (2 x 2 gloo ranks, 10 steps).  Each asserts its own
-equivalences and exits non-zero when one fails.  Without ``--device`` both
-ask for the card, and raise here."""
+"""The port's examples run end to end on the host: the quickstart (Eq. 13
+and a distributed MLP on 2 x 4 gloo ranks), the paper's §5 LeNet-5
+experiment (2 x 2 gloo ranks, 10 steps), each asserting its own
+equivalences and exiting non-zero when one fails, and the serving demo
+(150 AdamW steps on the modular-drift task, then 4 streams x 16 greedy
+tokens), which recovers the drift pattern exactly, as the reference's
+``examples/serve_lm.py`` does on this host.  Without ``--device`` the
+first two ask for the card, and raise here."""
 
 import os
 import subprocess
@@ -28,6 +31,7 @@ def _run(name, *args):
      "distributed == sequential ✓"),
     ("lenet5_distributed_torch.py", ("--device", "cpu", "--steps", "10"),
      "distributed ≡ sequential ✓"),
+    ("serve_lm_torch.py", ("--device", "cpu"), "pattern accuracy: 100.00%"),
 ])
 def test_example_runs_on_host(name, args, says):
     proc = _run(name, *args)

@@ -1,9 +1,12 @@
 """The port's serving engine and CLI against the JAX serving engine.
 
 Same parameters (initialised by JAX, carried over as numpy) and the same
-prompt: greedy tokens must be identical.  The CLI runs on the host only
-when asked (``--device cpu``); without a card and without that flag it
-raises rather than falling back.
+prompt: greedy tokens must be identical.  The stub frontends (reduced
+pixtral-12b and musicgen-medium) prefill from ``{"embeds"}`` and decode 4
+tokens against the reference's ``forward``, logits within 1e-4 of scale.
+The CLI runs on the host only when asked (``--device cpu``); without a
+card and without that flag it raises rather than falling back; its
+``--ckpt-dir`` restores a checkpoint the reference wrote, bitwise.
 """
 
 import dataclasses
@@ -19,12 +22,13 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.checkpoint import ckpt as jckpt
 from repro.models import init_params as jinit_params
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch import configs
 from repro_torch.device import NO_CARD
 from repro_torch.launch import serve
-from repro_torch.models import forward, init_params
+from repro_torch.models import forward, init_cache, init_params
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import ServeEngine
 
@@ -122,3 +126,79 @@ def test_no_card_raises_instead_of_falling_back():
     cfg = configs.reduced(configs.get_config("glm4-9b"))
     with pytest.raises(RuntimeError, match=NO_CARD.split(":")[0]):
         init_params(cfg, torch.Generator())
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-medium"])
+def test_embeds_frontend_prefill_and_decode_match_jax(arch):
+    """``{"embeds": (B, S, d)}`` in place of tokens (cast to cfg.dtype, no
+    lookup), then greedy decode from tokens, against the reference's
+    ``forward`` in both modes on the same parameters."""
+    cfg = configs.reduced(configs.get_config(arch))
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch))
+    assert cfg.frontend != "none"
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(4))
+    params = params_from_jax(jax.device_get(jparams))
+    B, S, max_seq = 2, 12, 24
+    emb = np.random.default_rng(5).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    jeng = JaxServeEngine(jcfg, jparams, None, max_seq=max_seq, batch_size=B)
+    want, jcache = jeng._prefill_impl(jparams, {"embeds": jnp.asarray(emb)})
+    logits, pref, _ = forward(params, {"embeds": torch.from_numpy(emb)}, cfg,
+                              mode="prefill")
+    eng = ServeEngine(cfg, params, max_seq=max_seq, batch_size=B)
+    cache = init_cache(cfg, B, max_seq, device="cpu")
+    for name, leaf in pref.items():
+        cache[name][:, :, :S] = leaf
+    got = logits[:, -1]
+    for t in range(5):
+        scale = float(np.abs(np.asarray(want)).max())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-4 * scale, rtol=0,
+                                   err_msg=f"{arch} step {t}")
+        tok = np.asarray(jnp.argmax(want, axis=-1))[:, None]
+        assert np.array_equal(got.argmax(-1).numpy()[:, None], tok), t
+        if t == 4:
+            break
+        want, jcache = jeng.decode_step(jcache, jnp.asarray(tok, jnp.int32),
+                                        jnp.int32(S + t))
+        got, cache = eng.decode_step(cache, torch.tensor(tok).long(),
+                                     S + t)
+
+
+def test_cli_restores_a_reference_checkpoint_bitwise(tmp_path, capsys):
+    """The reference's ``checkpoint.save`` writes reduced glm4-9b's params
+    (its own init at seed 7); the port's CLI restores them with
+    ``--ckpt-dir`` (its own init at seed 0 underneath): every leaf bitwise
+    the reference's restore, and the greedy tokens of both engines on one
+    numpy prompt equal (the two CLIs draw their prompts from different
+    generators, so the engines are compared)."""
+    jcfg = jconfigs.reduced(jconfigs.get_config("glm4-9b"))
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(7))
+    jckpt.save(str(tmp_path), 5, {"params": jparams, "step": jnp.int32(5),
+                                  "opt": None})
+    jstate, jstep = jckpt.restore(
+        str(tmp_path), like={"params": jparams, "step": jnp.int32(0),
+                             "opt": None})
+    assert jstep == 5
+    out = serve.main(["--reduced", "--device", "cpu", "--ckpt-dir",
+                      str(tmp_path), "--steps", "4"])
+    assert "restored params from step 5" in capsys.readouterr().out
+    engine = out["engine"]
+    want = params_from_jax(jax.device_get(jstate["params"]))
+    assert sorted(engine.params) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(engine.params[k], v), k
+    prompt = _prompt(jcfg, 16, 6)
+    jeng = JaxServeEngine(jcfg, jstate["params"], None, max_seq=64,
+                          batch_size=2)
+    want_tok = np.asarray(jeng.generate(jnp.asarray(prompt), steps=8))
+    eng = ServeEngine(engine.cfg, engine.params, max_seq=64, batch_size=2)
+    got = eng.generate(torch.from_numpy(prompt).long(), steps=8)
+    np.testing.assert_array_equal(got.numpy(), want_tok)
+
+
+def test_cli_without_a_checkpoint_initialises_fresh(tmp_path, capsys):
+    out = serve.main(["--reduced", "--device", "cpu", "--ckpt-dir",
+                      str(tmp_path / "empty"), "--steps", "2"])
+    assert "restored" not in capsys.readouterr().out
+    assert out["tokens"].shape == (4, 2)

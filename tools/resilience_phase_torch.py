@@ -1,9 +1,10 @@
 """``chip_smoke.py``'s phase 14 (``resilience``) on its own, after the
 device and build phases: a short call on one NVIDIA card.  With
-``--four-card-meshes`` it runs only the phase's elastic shrink on four
-cards, (dp, pp, cp, tp, ep) = (2, 1, 1, 2, 1) -> (1, 1, 1, 2, 1), one NCCL
-rank per card, and prints its results as one JSON line
-``{"resilience4": ...}``.
+``--four-card-meshes`` it runs only the phase's four-card part (c), one
+NCCL rank per card at (dp, pp, cp, tp, ep) = (2, 1, 1, 2, 1): the heal of
+an ``OSError`` one rank's save raises, then the elastic shrink to (1, 1,
+1, 2, 1), and prints its results as one JSON line ``{"resilience4":
+...}``.
 
     python3 tools/resilience_phase_torch.py
     python3 tools/resilience_phase_torch.py --four-card-meshes

@@ -5,8 +5,9 @@ card and hold each hand-written kernel against its plain PyTorch version.
 
 Five paths are served, glm4-9b (dense attention), mamba2-370m (SSM),
 jamba-v0.1-52b (SSM and attention mixers, MoE FFNs), pixtral-12b and
-musicgen-medium (stub frontends: embeds in place of tokens), and glm4-9b
-also from a checkpoint and sharded over a (data, model) mesh; glm4-9b is
+musicgen-medium (stub frontends: embeds in place of tokens), glm4-9b
+also from a checkpoint, and glm4-9b, jamba-v0.1-52b and mamba2-370m
+sharded over a (data, model) mesh; glm4-9b is
 trained, also with its sequence over a ctx axis (ring attention), and
 through checkpoints, injected faults and a mesh shrink.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
@@ -202,18 +203,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    before and read just after (L flash, (2L + 1) norms a forward):
    prefill and decode tok/s and peak memory.
 16. serve_sharded: sharded serving (``ServeEngine(cfg, params, policy)``
-   over a (data, model) mesh) at (1, 1), one NCCL rank: glm4-9b bf16 at
-   full width cut to 8 layers (B 4, prompt 1024, 32 steps) under
-   ``kvdim`` and ``kvseq``
-   on ``shard_params``' cut of the parameters, against the engine with no
-   policy: the prefill's and every teacher-forced decode step's logits
-   within BF16_PARITY_TOL of scale, its greedy tokens equal (a first
-   difference is tolerated only at a near-tie); the launch counts of the
-   measured request (L flash on the tensor cores, one RMSNorm a forward,
-   the final norm where the residual is whole); prefill and decode tok/s
-   and peak memory.  The 4-card mesh (1, 4), mistral-large-123b, runs in
-   ``tools/serve_phase_torch.py --four-card-meshes``
-   (``serve_meshes``).  One line ``{"serve_sharded": {...}}``.
+   over a (data, model) mesh) at (1, 1), one NCCL rank, each model in
+   bf16 at full width against the engine with no policy on
+   ``shard_params``' cut of the same parameters: glm4-9b cut to 8 layers
+   (B 4, prompt 1024, 32 steps) under ``kvdim`` and ``kvseq``;
+   jamba-v0.1-52b cut to one 8-layer period (SSM mixers on their heads,
+   MoE FFNs on their experts, attention; B 4, prompt 1024) and
+   mamba2-370m, all 48 layers (B 8, prompt 2048), under ``kvdim``.  The
+   unsharded engine runs its norms with the sharded engine's arithmetic
+   in plain torch for the comparison (at random weights one bf16
+   rounding at each norm carries through mamba2's 48 layers to the
+   logits' scale; the share it moves them by is printed): the prefill's
+   and every teacher-forced decode step's logits within BF16_PARITY_TOL
+   of scale (jamba's unsharded engine routed as the sharded one was,
+   every swap of a top-k expert a near-tie), its greedy tokens equal (a
+   first difference is tolerated only at a near-tie); the launch counts of the
+   measured request (flash and SSD once per layer of their kind on the
+   tensor cores, one RMSNorm a forward, the final norm where the residual
+   is whole); prefill and decode tok/s and peak memory.  The 4-card
+   cells at (1, 4), mistral-large-123b, jamba-v0.1-52b (all 32 layers)
+   and glm4-9b (2 K/V heads under TP 4), run in
+   ``tools/serve_phase_torch.py --four-card-meshes`` (``serve_meshes``).
+   One line ``{"serve_sharded": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -252,6 +263,7 @@ from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
                                  reduced)
 from repro_torch.core import primitives as prim  # noqa: E402
+from repro_torch.core.compile import region  # noqa: E402
 from repro_torch.core import ring_attention as ring  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -265,6 +277,7 @@ from repro_torch.models import (forward,  # noqa: E402
                                 init_rank_params, moe, shard_params)
 from repro_torch.models.attention import (attention_block,  # noqa: E402
                                           attn_init)
+from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
 from repro_torch.models.common import (mlp_apply, rmsnorm,  # noqa: E402
@@ -407,18 +420,37 @@ PIXTRAL, MUSICGEN = "pixtral-12b", "musicgen-medium"
 FRONTENDS = {PIXTRAL: {"batch": 4, "prompt_len": 1024, "steps": 32},
              MUSICGEN: {"batch": 4, "prompt_len": 1024, "steps": 32}}
 FRONTEND_PARITY = {"batch": 2, "prompt_len": 200, "steps": 4}
-# Phase 16: sharded serving of glm4-9b at full width, depth cut 40 -> 8
-# (the path's code at world 1; the script's time), on a (data, model) =
-# (1, 1) mesh, one NCCL rank, under each cache layout, against the
-# engine with no policy; the 4-card meshes (tools/serve_phase_torch.py
-# --four-card-meshes): mistral-large-123b at (1, 4), (a) 2 layers against
-# one card, fp32 and bf16, (b) at full depth from the per-rank initialiser
+# Phase 16: sharded serving at full width on a (data, model) = (1, 1)
+# mesh, one NCCL rank, against the engine with no policy on the same
+# parameters (the path's code at world 1): glm4-9b (depth cut 40 -> 8, for
+# the script's time) under each cache layout; jamba-v0.1-52b cut to one
+# 8-layer period (its SSM mixers, MoE FFNs and attention; 32 layers do
+# not fit one card) and mamba2-370m, all 48 layers, under kvdim (an SSM
+# state's layout does not depend on it).  The 4-card cells
+# (tools/serve_phase_torch.py --four-card-meshes), each at (1, 4):
+# mistral-large-123b, (a) 2 layers against one card, fp32 and bf16, (b)
+# all 88 layers from the per-rank initialiser; jamba-v0.1-52b, (a) one
+# period against one card, fp32 and bf16, (b) all 32 layers from the
+# per-rank initialiser; glm4-9b, all 40 layers (2 K/V heads under TP 4)
+# against one card, bf16.
 MISTRAL = "mistral-large-123b"
-SHARDED = {"layers": 8, "batch": 4, "prompt_len": 1024, "steps": 32}
+SHARDED = {GLM: {"layers": 8, "batch": 4, "prompt_len": 1024, "steps": 32,
+                 "layouts": ("kvdim", "kvseq")},
+           JAMBA: {"layers": 8, "batch": 4, "prompt_len": 1024, "steps": 32,
+                   "layouts": ("kvdim",)},
+           MAMBA: {"layers": 48, "batch": 8, "prompt_len": 2048,
+                   "steps": 32, "layouts": ("kvdim",)}}
 LAYOUTS = ("kvdim", "kvseq")
 SERVE_MESH = (1, 4)
-SERVE_MESH_PARITY = {"layers": 2, "batch": 4, "prompt_len": 256, "steps": 8}
-SERVE_MESH_FULL = {"layers": 88, "batch": 4, "prompt_len": 1024, "steps": 32}
+# cell -> (arch, the parity cut's layers or None, the full run's layers,
+# whether the full run draws this rank's shards alone, as a model no card
+# holds whole must, or cuts them from the global tree held against one
+# card)
+SERVE_MESH_CELLS = {"mistral": (MISTRAL, 2, 88, True),
+                    "jamba": (JAMBA, 8, 32, True),
+                    "glm4": (GLM, None, 40, False)}
+SERVE_MESH_PARITY = {"batch": 4, "prompt_len": 256, "steps": 8}
+SERVE_MESH_FULL = {"batch": 4, "prompt_len": 1024, "steps": 32}
 
 
 def expect_routes(name, dtype, before):
@@ -3111,7 +3143,7 @@ def phase_frontends(smi):
 
 def teacher_forced(engine, prompt, tokens):
     """The last logits of ``engine``'s prefill and of each decode step fed
-    ``tokens`` (B, steps): (steps + 1, B, V) in fp32 on the host."""
+    ``tokens`` (B, steps): (steps, B, V) in fp32 on the host."""
     S = prompt.shape[1]
     logits, cache = engine.prefill(prompt)
     out = [logits.float().cpu()]
@@ -3121,15 +3153,147 @@ def teacher_forced(engine, prompt, tokens):
     return torch.stack(out)
 
 
-def held_to(name, got, want, got_tokens, want_tokens, tol, exact_tokens):
+@contextlib.contextmanager
+def routed_moe(replay=None):
+    """Under it, every MoE FFN call records its router logits (fp32) and
+    its own top-k experts, on the host: ``(logits (T, E), experts (T,
+    k))`` a call, in call order.  With ``replay``, such a recording of
+    another run over the same tokens, each call routes to the recorded
+    experts in place of its own top-k, its gates its own softmax at
+    them."""
+    plain = moe._dispatch_combine_local
+    calls = []
+
+    def routed(x, router_w, cfg, expert_fn, stat_axes=()):
+        logits = x.float() @ router_w
+        calls.append((logits.cpu(), torch.topk(
+            logits, cfg.experts_per_token, dim=-1).indices.cpu()))
+        if replay is None:
+            return plain(x, router_w, cfg, expert_fn, stat_axes)
+        forced = replay[len(calls) - 1][1].to(x.device)
+        topk = torch.topk
+        torch.topk = lambda probs, k, dim=-1: (probs.gather(-1, forced),
+                                               forced)
+        try:
+            return plain(x, router_w, cfg, expert_fn, stat_axes)
+        finally:
+            torch.topk = topk
+
+    moe._dispatch_combine_local = routed
+    try:
+        yield calls
+    finally:
+        moe._dispatch_combine_local = plain
+
+
+def check_routes(name, got_calls, want_calls):
+    """The routers of two runs over the same tokens, the reference
+    (``want``) routed as the other (``routed_moe(replay=...)``): wherever
+    the reference's own top-k differs from the other's, a near-tie: for
+    every expert the reference would choose and the other did not, one
+    the other chose instead lies within twice the two runs' largest
+    router-logit error at the swapped experts, below it in the
+    reference's logits, else it fails.  Returns the router logits' error
+    as a share of their scale and the count of swaps."""
+    if len(got_calls) != len(want_calls):
+        raise AssertionError(f"{name}: {len(got_calls)} MoE calls against "
+                             f"{len(want_calls)}")
+    g = torch.cat([c[0] for c in got_calls])
+    w = torch.cat([c[0] for c in want_calls])
+    gi = torch.cat([c[1] for c in got_calls])
+    wi = torch.cat([c[1] for c in want_calls])
+    swaps = (gi.sort(-1).values != wi.sort(-1).values).any(-1)
+    for t in swaps.nonzero()[:, 0].tolist():
+        gs, ws = set(gi[t].tolist()), set(wi[t].tolist())
+        swapped = list(gs ^ ws)
+        err = float((g[t, swapped] - w[t, swapped]).abs().max())
+        margin = max(min(float(w[t, e] - w[t, f]) for f in gs - ws)
+                     for e in ws - gs)
+        if margin > 2 * err:
+            raise AssertionError(
+                f"{name}: token {t} of the MoE calls routes to "
+                f"{sorted(gs)} against the reference's {sorted(ws)}: "
+                f"margin {margin} beyond twice the router-logit error "
+                f"there, {err}")
+    return {"router_share": float((g - w).abs().max() / w.abs().max()),
+            "near_tie_swaps": int(swaps.sum()), "choices": int(gi.shape[0])}
+
+
+def sharded_norm_arithmetic(x, w, eps):
+    """``models.common.rmsnorm_sharded``'s arithmetic on a whole residual
+    (the sum of squares over d, then the mean): at (data, model) = (1, 1)
+    the sharded engine's norms compute exactly this, where the unsharded
+    engine's launch the kernel."""
+    xf = x.float()
+    ss = (xf * xf).sum(-1, keepdim=True)
+    return (xf * torch.rsqrt(ss / x.shape[-1] + eps) * w.float()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """Under it every norm of a forward computes
+    ``sharded_norm_arithmetic`` in plain torch, not the kernel (no launch
+    counted)."""
+    kernel = ops._rmsnorm_fwd
+    ops._rmsnorm_fwd = sharded_norm_arithmetic
+    try:
+        yield
+    finally:
+        ops._rmsnorm_fwd = kernel
+
+
+def norm_swap_share(engine, prompt):
+    """How far a model's own rounding carries: ``engine``'s prefill logits
+    with the norm kernel against those with ``plain_norms`` (one bf16
+    rounding apart at each norm), max |diff| over max |logit|."""
+    a, _ = engine.prefill(prompt)
+    with plain_norms():
+        b, _ = engine.prefill(prompt)
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def routed_reference(name, engine, base, prompt, tokens, want=None,
+                     reference=contextlib.nullcontext):
+    """Teacher-forced logits (``teacher_forced``) of ``engine`` and of the
+    reference engine ``base`` on ``tokens``, ``base`` run under the
+    context ``reference()``: for an MoE model ``base`` runs routed as
+    ``engine`` was (a token sent to another expert at a near-tie changes
+    its FFN output by that output's size, and the residual carries it
+    on), and ``check_routes`` holds the swaps to near-ties.  ``want``:
+    ``base``'s logits, for a model with no MoE FFN (they do not depend
+    on ``engine``).  Returns (got, want, the routers' check or None)."""
+    if not engine.cfg.num_experts:
+        return teacher_forced(engine, prompt, tokens), want, None
+    with routed_moe() as routes:
+        got = teacher_forced(engine, prompt, tokens)
+    with routed_moe(replay=routes) as base_routes, reference():
+        want = teacher_forced(base, prompt, tokens)
+    return got, want, check_routes(name, routes, base_routes)
+
+
+def held_to(name, got, want, got_tokens, want_tokens, tol, exact_tokens,
+            hold=True):
     """Logits (steps, B, V), teacher-forced on the reference's greedy
     tokens, within ``tol`` of scale, and the greedy tokens equal.  With
     ``exact_tokens`` False (bf16), where two greedy runs may part at a
     near-tie, the tokens are held teacher-forced at every step and row
-    instead: wherever the argmax of ``got`` is not the reference's token,
-    that row's top-2 margin in ``want`` must lie within twice the error
-    of ``got`` at those two entries, else it fails."""
-    share = check_scaled(name, got, want, tol)
+    instead: wherever the argmax of ``got`` is not that of ``want`` (the
+    reference's token, or with its routing replayed, ``routed_reference``,
+    the token it picks under that routing), that row's top-2 margin in
+    ``want`` must lie within twice the error of ``got`` at those two
+    entries, else it fails.  With ``hold`` False the same is measured
+    and returned, not asserted (a model whose own rounding carries to the
+    logits' scale, ``sublayer_shares`` holding it instead)."""
+    got_f, want_f = got.float(), want.float()
+    err = float((got_f - want_f).abs().max())
+    scale = float(want_f.abs().max())
+    share = err / max(scale, 1e-30)
+    emit(phase="check", case=name, max_abs_err=err, scale=scale,
+         share=share, tol=tol if hold else None)
+    if hold and (share > tol or not torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: error {err} is {share:.4f} of the "
+                             f"scale {scale}, above {tol}")
     got_tokens, want_tokens = got_tokens.cpu(), want_tokens.cpu()
     equal = bool(torch.equal(got_tokens, want_tokens))
     first = (None if equal else
@@ -3138,17 +3302,78 @@ def held_to(name, got, want, got_tokens, want_tokens, tol, exact_tokens):
         raise AssertionError(f"{name}: greedy tokens differ first at step "
                              f"{first}")
     ties = []
-    for t, b in (got.argmax(-1) != want_tokens.T).nonzero().tolist():
+    for t, b in (got.argmax(-1) != want.argmax(-1)).nonzero().tolist():
         top2 = torch.topk(want[t, b], 2).indices
         margin = float(want[t, b, top2[0]] - want[t, b, top2[1]])
         err = float((got[t, b, top2] - want[t, b, top2]).abs().max())
         ties.append({"step": t, "row": b, "margin": margin, "err": err})
-        if margin > 2 * err:
+        if hold and margin > 2 * err:
             raise AssertionError(f"{name}: teacher-forced token differs at "
                                  f"step {t}, row {b}: top-2 margin {margin} "
                                  f"beyond twice the error there, {err}")
-    return {"share": share, "tokens_equal": equal, "first_differ": first,
-            "teacher_forced_differ": len(ties), "ties": ties[:8]}
+    return {"share": share, "held": hold, "tokens_equal": equal,
+            "first_differ": first, "teacher_forced_differ": len(ties),
+            "ties": ties[:8]}
+
+
+def sublayer_shares(name, cfg, params, mine, policy, prompt, max_seq, tol):
+    """Each sublayer of ``cfg``'s prefill run on the same input by the
+    sharded engine's body on this rank (its shards ``mine`` under
+    ``policy``) and by the one-card engine's (``params``), the input the
+    one-card prefill's own; an MoE FFN of the one-card engine routed as
+    the sharded one was (``routed_moe``).  The update each adds to the
+    residual, on this rank's feature block, within ``tol`` of its scale
+    plus the bf16 rounding of the residual add on each side, else it
+    fails; returns the largest error of each over its scale."""
+    B, S = prompt.shape
+    inputs = []
+    plain = model_blocks.sublayer_apply
+
+    def recording(p, x, *args, **kw):
+        inputs.append(x)
+        return plain(p, x, *args, **kw)
+
+    model_blocks.sublayer_apply = recording
+    try:
+        with torch.inference_mode():
+            forward(params, {"tokens": prompt}, cfg, mode="prefill")
+    finally:
+        model_blocks.sublayer_apply = plain
+    with prim.use_mesh(policy.mesh):
+        me = prim.axis_index(policy.model_axis)
+    cols = slice(me * cfg.d_model // policy.model_size,
+                 (me + 1) * cfg.d_model // policy.model_size)
+    positions = torch.arange(S, device=prompt.device)[None].expand(B, S)
+    cache = init_cache(cfg, B, max_seq, device=prompt.device, policy=policy)
+    shares = []
+    for j, x in enumerate(inputs):
+        s, i = divmod(j, cfg.block_period)
+        pre = f"blocks.pos{i}."
+        p1, pm = ({k[len(pre):]: v[s] for k, v in tree.items()
+                   if k.startswith(pre)} for tree in (params, mine))
+        x_loc = x[..., cols].contiguous()
+        with torch.inference_mode():
+            with routed_moe() as routes, region(policy):
+                y_loc = model_blocks._tp_sublayer_body(
+                    pm, x_loc, positions, cfg, policy, cfg.ffn_kind(i),
+                    mixer=cfg.mixer_kind(i), mode="prefill",
+                    cache=subtree(cache, f"pos{i}"), index=s)
+            with routed_moe(replay=routes):
+                y, _, _ = sublayer_apply(p1, x, cfg, i, positions=positions,
+                                         mode="prefill")
+        want = (y - x)[..., cols].float()
+        got = (y_loc - x_loc).float()
+        err = (got - want).abs()
+        shares.append(float(err.max() / want.abs().max()))
+        # each side rounds x + update to bf16: up to 2^-8 of |y| apiece
+        bound = tol * want.abs().max() + 2 ** -7 * y[..., cols].float().abs()
+        if (err > bound).any():
+            raise AssertionError(
+                f"{name}: sublayer {j}'s update differs by {shares[-1]:.4f} "
+                f"of its scale, beyond {tol} of it plus the residual's "
+                f"rounding")
+    emit(phase="check", case=f"{name} sublayers", share=max(shares), tol=tol)
+    return shares
 
 
 def decode_profile(engine, prompt, top=8):
@@ -3184,20 +3409,48 @@ def decode_profile(engine, prompt, top=8):
                          for e in host]}
 
 
-def serve_sharded_rank(rank, world_mesh):
-    """Phase 16 on one NCCL rank: glm4-9b bf16 at full width (``SHARDED``'s
-    depth) through
-    ``ServeEngine`` with no policy, then with a (data, model) = (1, 1)
-    policy under each layout on the same parameters (``shard_params``):
-    the logits of the prefill and of every decode step fed the unsharded
-    engine's greedy tokens within BF16_PARITY_TOL of scale, and the
-    tokens held to the unsharded engine's at every step, teacher-forced
-    (``held_to``); a warm-up request,
-    then the measured one with the launch counts set to 0 just before and
-    read just after (L flash on the tensor cores, one RMSNorm a forward:
-    the final norm, where the residual is whole)."""
-    run = SHARDED
-    cfg = dataclasses.replace(get_config(GLM), num_layers=run["layers"])
+def sharded_launches(cfg, steps):
+    """Launches of one sharded request (prefill + ``steps`` decode steps):
+    flash and the SSD scan once per layer of their kind in prefill, on
+    this rank's heads; one RMSNorm a forward, the final norm, where the
+    residual is whole (the others run over the feature-sharded residual,
+    ``rmsnorm_sharded``)."""
+    kinds = [cfg.mixer_kind(i) for i in range(cfg.num_layers)]
+    return {"flash_attention": kinds.count("attn"), "rmsnorm": 1 + steps,
+            "ssd_scan": kinds.count("ssm")}
+
+
+def check_sharded_launches(name, cfg, snap, steps):
+    """The measured request's launches are ``sharded_launches``, every
+    flash and SSD launch on the tensor-core route (bf16)."""
+    want = sharded_launches(cfg, steps)
+    bad = snap["launches"] != want or any(
+        snap["routes"][k]["cuda_core"] for k in ("flash_attention",
+                                                 "ssd_scan"))
+    if bad:
+        raise AssertionError(f"{name}: launches {snap}, expected {want} on "
+                             f"the tensor cores")
+
+
+def serve_sharded_model(arch, mesh):
+    """One model of phase 16 on this NCCL rank: ``arch`` in bf16 at full
+    width (``SHARDED[arch]``'s depth) through ``ServeEngine`` with no
+    policy (its rates with the norm kernel, and ``norm_swap_share``),
+    then with a (data, model) = (1, 1) policy under each of its layouts
+    on the same parameters (``shard_params``).  The reference is the
+    unsharded engine with ``plain_norms``, the arithmetic of the sharded
+    engine's norms: at random weights one bf16 rounding at each norm
+    carries through mamba2-370m's 48 layers to the logits' scale
+    (``norm_swap_share``, printed), so only the same arithmetic can be
+    held.  The logits of
+    the prefill and of every decode step fed its greedy tokens within
+    BF16_PARITY_TOL of scale (an MoE model's reference routed as the
+    sharded engine was, ``routed_reference``), and the tokens held to its
+    at every step, teacher-forced (``held_to``); a warm-up request, then
+    the measured one with the launch counts set to 0 just before and
+    read just after (``sharded_launches``)."""
+    run = SHARDED[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=run["layers"])
     B, S, steps = run["batch"], run["prompt_len"], run["steps"]
     gen = torch.Generator(device="cuda").manual_seed(5)
     params = init_params(cfg, gen, "cuda")
@@ -3205,15 +3458,18 @@ def serve_sharded_rank(rank, world_mesh):
                            device="cuda")
     base = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
     base.generate(prompt, 2)                             # warm-up
-    want_tok = base.generate(prompt, steps)
-    out = {"arch": GLM, "mesh": (1, 1), **run, "layouts": {},
+    base.generate(prompt, steps)
+    out = {"arch": arch, "mesh": (1, 1), **run, "layouts": {},
+           "params": sum(p.numel() for p in params.values()),
            "unsharded_prefill_tok_s": B * S / base.stats["prefill_s"],
            "unsharded_decode_tok_s": B * steps / base.stats["decode_s"],
-           "unsharded_decode_profile": decode_profile(base, prompt)}
-    want = teacher_forced(base, prompt, want_tok)
-    mesh = launch_mesh.make_host_mesh((1, 1), ("data", "model"),
-                                      device="cuda")
-    for layout in LAYOUTS:
+           "unsharded_decode_profile": decode_profile(base, prompt),
+           "norm_swap_share": norm_swap_share(base, prompt)}
+    with plain_norms():
+        want_tok = base.generate(prompt, steps)
+        want = None if cfg.num_experts else teacher_forced(base, prompt,
+                                                            want_tok)
+    for layout in run["layouts"]:
         pol = Policy.for_mesh(mesh, kv_layout=layout)
         engine = ServeEngine(cfg, shard_params(cfg, params, pol), pol,
                              max_seq=S + steps + 8, batch_size=B)
@@ -3223,92 +3479,150 @@ def serve_sharded_rank(rank, world_mesh):
         got_tok = engine.generate(prompt, steps)
         snap = snapshot()
         st = engine.stats
-        got = teacher_forced(engine, prompt, want_tok)
-        res = held_to(f"serve_sharded {layout} {GLM}", got, want, got_tok,
-                      want_tok, BF16_PARITY_TOL, exact_tokens=False)
+        name = f"serve_sharded {layout} {arch}"
+        got, want_l, routes = routed_reference(name, engine, base, prompt,
+                                               want_tok, want, plain_norms)
+        res = held_to(name, got, want_l, got_tok, want_tok,
+                      BF16_PARITY_TOL, exact_tokens=False)
         res.update(prefill_tok_s=B * S / st["prefill_s"],
                    decode_tok_s=B * steps / st["decode_s"],
                    peak_mem_bytes=torch.cuda.max_memory_allocated(),
                    launches=snap, logits_finite=st["logits_finite"],
+                   routing=routes,
                    decode_profile=decode_profile(engine, prompt))
         out["layouts"][layout] = res
-        want_l = {"flash_attention": cfg.num_layers, "rmsnorm": 1 + steps,
-                  "ssd_scan": 0}
-        if (snap["launches"] != want_l or not st["logits_finite"]
-                or snap["routes"]["flash_attention"]["cuda_core"]):
-            raise AssertionError(f"serve_sharded {layout}: {res}, launches "
-                                 f"expected {want_l}")
+        emit(phase="serve_sharded", arch=arch, layout=layout, **res)
+        if not st["logits_finite"]:
+            raise AssertionError(f"{name}: non-finite logits")
+        check_sharded_launches(name, cfg, snap, steps)
         del engine
+    return out
+
+
+def serve_sharded_rank(rank, world_mesh):
+    """Phase 16 on one NCCL rank: ``serve_sharded_model`` for each model
+    of ``SHARDED``, the card's memory emptied between them."""
+    mesh = launch_mesh.make_host_mesh((1, 1), ("data", "model"),
+                                      device="cuda")
+    out = {}
+    for arch in SHARDED:
+        out[arch] = serve_sharded_model(arch, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
 def phase_serve_sharded(smi):
     """Phase 16, ``serve_sharded``: ``serve_sharded_rank`` spawned as one
     NCCL rank.  Prints ``{"serve_sharded": ...}``; returns the launch
-    counts of each layout's measured request by path."""
+    counts of each model's and layout's measured request by path."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     (res,) = launch_mesh.spawn(serve_sharded_rank, 1, device="cuda",
                                timeout_s=900)
-    res.update(kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
-               seconds=time.perf_counter() - t0)
+    res = {"models": res, "kind": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi, "seconds": time.perf_counter() - t0}
     print(json.dumps({"serve_sharded": res}), flush=True)
-    return {f"serve_sharded {layout} bf16 {GLM}":
-            res["layouts"][layout]["launches"] for layout in LAYOUTS}
+    return {f"serve_sharded {layout} bf16 {arch}": r["launches"]
+            for arch, m in res["models"].items()
+            for layout, r in m["layouts"].items()}
 
 
-def serve_mesh_parity(rank, dtype):
-    """(a) on this rank of (data, model) = (1, 4): mistral-large-123b at
-    full width cut to 2 layers, the global parameters drawn on every card
-    from one seed, the one-card engine with no policy against the sharded
-    engine on this rank's cut (``shard_params``) under each layout: fp32
-    logits within PARITY_TOL of scale and greedy tokens equal, bf16 within
-    BF16_PARITY_TOL (``held_to``)."""
-    run = SERVE_MESH_PARITY
-    cfg = dataclasses.replace(get_config(MISTRAL), num_layers=run["layers"],
-                              dtype=dtype)
+def mesh_cfg(arch, layers, dtype="bfloat16"):
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               dtype=dtype)
+
+
+def serve_mesh_parity(rank, arch, cfg, run):
+    """This rank of (data, model) = (1, 4): ``arch`` at full width (``cfg``
+    gives its depth and dtype), the global parameters drawn on every card
+    from one seed; the one-card engine with no policy runs first and its
+    results are kept on the host, then the sharded engine on this rank's
+    cut (``shard_params``; in fp32 the global tree freed) under each
+    layout: fp32 logits within PARITY_TOL of scale and greedy tokens
+    equal; bf16 each sublayer's update within BF16_PARITY_TOL
+    (``sublayer_shares``), and a dense model's logits within
+    BF16_PARITY_TOL too (``held_to``), an MoE model's one-card engine
+    routed as the sharded one was (``routed_reference``).  An SSM or MoE
+    model's bf16 logits are measured, not held: at random weights its own
+    rounding carries to their scale (``norm_swap_share``; PERF.md §6).  Returns each layout's result and the sharded engine's launches
+    and rates, beside the one-card engine's ``norm_swap_share``."""
     B, S, steps = run["batch"], run["prompt_len"], run["steps"]
     gen = torch.Generator(device="cuda").manual_seed(6)
     params = init_params(cfg, gen, "cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
     base = ServeEngine(cfg, params, max_seq=S + steps + 8, batch_size=B)
+    base.generate(prompt, 2)                             # warm-up
     want_tok = base.generate(prompt, steps)
-    want = teacher_forced(base, prompt, want_tok)
-    del base
+    out = {"params": sum(p.numel() for p in params.values()),
+           "layers": cfg.num_layers, "dtype": cfg.dtype, **run,
+           "one_card_prefill_tok_s": B * S / base.stats["prefill_s"],
+           "one_card_decode_tok_s": B * steps / base.stats["decode_s"],
+           "norm_swap_share": norm_swap_share(base, prompt)}
+    fp32 = cfg.dtype == "float32"
+    dense = not any(cfg.mixer_kind(i) == "ssm" or cfg.ffn_kind(i) == "moe"
+                    for i in range(cfg.block_period))
+    want = (None if cfg.num_experts and not fp32 else
+            teacher_forced(base, prompt, want_tok))
     mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
                                       device="cuda")
-    fp32 = dtype == "float32"
-    out = {"params": sum(p.numel() for p in params.values())}
+    mine = shard_params(cfg, params, Policy.for_mesh(mesh))
+    if fp32:   # the one-card engine is done: free the global tree
+        del base, params
+        gc.collect()
+        torch.cuda.empty_cache()
     for layout in LAYOUTS:
         pol = Policy.for_mesh(mesh, kv_layout=layout)
-        engine = ServeEngine(cfg, shard_params(cfg, params, pol), pol,
-                             max_seq=S + steps + 8, batch_size=B)
+        engine = ServeEngine(cfg, mine, pol, max_seq=S + steps + 8,
+                             batch_size=B)
+        engine.generate(prompt, 2)                        # warm-up
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         got_tok = engine.generate(prompt, steps)
         snap = snapshot()
-        got = teacher_forced(engine, prompt, want_tok)
-        out[layout] = held_to(
-            f"serve_mesh {SERVE_MESH} {layout} {dtype} {MISTRAL} rank {rank}",
-            got, want, got_tok, want_tok,
-            PARITY_TOL if fp32 else BF16_PARITY_TOL, exact_tokens=fp32)
-        out[layout]["launches"] = snap
-        expect_no_route(f"serve_mesh {layout} {dtype}", snap,
-                        "tensor_core" if fp32 else "cuda_core")
+        st = engine.stats
+        name = (f"serve_mesh {SERVE_MESH} {layout} {cfg.dtype} {arch} "
+                f"{cfg.num_layers} layers rank {rank}")
+        if fp32:
+            got, want_l, routes = teacher_forced(engine, prompt,
+                                                 want_tok), want, None
+        else:
+            got, want_l, routes = routed_reference(
+                name, engine, base, prompt, want_tok, want)
+        out[layout] = held_to(name, got, want_l, got_tok, want_tok,
+                              PARITY_TOL if fp32 else BF16_PARITY_TOL,
+                              exact_tokens=fp32, hold=fp32 or dense)
+        if not fp32 and "sublayers" not in out:
+            out["sublayers"] = sublayer_shares(
+                name, cfg, params, mine, pol, prompt, S + steps + 8,
+                BF16_PARITY_TOL)
+        out[layout].update(
+            launches=snap, tokens=got_tok[0].tolist(), routing=routes,
+            prefill_tok_s=B * S / st["prefill_s"],
+            decode_tok_s=B * steps / st["decode_s"],
+            peak_mem_bytes=torch.cuda.max_memory_allocated())
+        want_l = sharded_launches(cfg, steps)
+        if snap["launches"] != want_l:
+            raise AssertionError(f"{name}: launches {snap}, expected "
+                                 f"{want_l}")
+        expect_no_route(name, snap, "tensor_core" if fp32 else "cuda_core")
+        if rank == 0:
+            emit(phase="serve_mesh_parity", arch=arch, dtype=cfg.dtype,
+                 layers=cfg.num_layers, layout=layout, **out[layout])
         del engine
     return out
 
 
-def serve_mesh_full(rank, smi):
-    """(b) on this rank of (1, 4): mistral-large-123b in bf16 at full
-    width and ``SERVE_MESH_FULL["layers"]`` layers, this rank's shards
-    drawn on its card alone (``init_rank_params``), B 4, prompt 1024, 32
-    greedy steps under each layout: a warm-up request of 2 steps, then
-    the measured one, its launch counts set to 0 just before and read
-    just after (L flash launches, one RMSNorm a forward)."""
+def serve_mesh_full(rank, arch, cfg, smi):
+    """This rank of (1, 4): ``arch`` in bf16 at full width and ``cfg``'s
+    depth, this rank's shards drawn on its card alone
+    (``init_rank_params``), B 4, prompt 1024, 32 greedy steps under each
+    layout: a warm-up request of 2 steps, then the measured one, its
+    launch counts set to 0 just before and read just after
+    (``sharded_launches``, on the tensor cores)."""
     run = SERVE_MESH_FULL
-    cfg = dataclasses.replace(get_config(MISTRAL), num_layers=run["layers"])
     B, S, steps = run["batch"], run["prompt_len"], run["steps"]
     mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
                                       device="cuda")
@@ -3342,31 +3656,59 @@ def serve_mesh_full(rank, smi):
                        "launches": snap, "tokens": tokens[0].tolist(),
                        "logits_finite": st["logits_finite"],
                        "decode_profile": decode_profile(engine, prompt)}
-        want = {"flash_attention": cfg.num_layers, "rmsnorm": 1 + steps,
-                "ssd_scan": 0}
-        if (snap["launches"] != want or not st["logits_finite"]
-                or snap["routes"]["flash_attention"]["cuda_core"]):
-            raise AssertionError(f"serve_mesh full {layout} rank {rank}: "
-                                 f"{out[layout]}, expected {want}")
+        name = f"serve_mesh full {layout} {arch} rank {rank}"
+        if rank == 0:
+            emit(phase="serve_mesh_full", arch=arch, layout=layout,
+                 **{k: v for k, v in out.items() if k not in LAYOUTS},
+                 **out[layout])
+        if not st["logits_finite"]:
+            raise AssertionError(f"{name}: non-finite logits")
+        check_sharded_launches(name, cfg, snap, steps)
         del engine
     return out
 
 
-def serve_mesh_rank(rank, world_mesh, *, smi):
-    out = {"rank": rank, "parity": {}}
-    for dtype in ("float32", "bfloat16"):
-        out["parity"][dtype] = serve_mesh_parity(rank, dtype)
-        gc.collect()
-        torch.cuda.empty_cache()
-    out["full"] = serve_mesh_full(rank, smi)
+def serve_mesh_rank(rank, world_mesh, *, smi, cells):
+    """The 4-card cells on this rank, the card's memory emptied between
+    runs: each cell's full run (``serve_mesh_full``), then its parity cut
+    in fp32 and bf16 (``serve_mesh_parity``); for ``glm4``, all 40 layers
+    against one card in bf16.  Rank 0 prints each run's result as it
+    ends."""
+    out = {"rank": rank}
+    for cell in cells:
+        arch, parity_layers, layers, per_rank = SERVE_MESH_CELLS[cell]
+        res = out[cell] = {"arch": arch, "parity": {}}
+        if per_rank:
+            res["full"] = serve_mesh_full(rank, arch, mesh_cfg(arch, layers),
+                                          smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs = ([(parity_layers, "float32", SERVE_MESH_PARITY),
+                 (parity_layers, "bfloat16", SERVE_MESH_PARITY)]
+                if parity_layers else [(layers, "bfloat16", SERVE_MESH_FULL)])
+        for depth, dtype, run in runs:
+            res["parity"][dtype] = serve_mesh_parity(
+                rank, arch, mesh_cfg(arch, depth, dtype), run)
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
-def serve_meshes(smi):
+def mesh_tokens(rank_out, cell):
+    """One rank's first-row greedy tokens of ``cell``, by run and layout."""
+    res = rank_out[cell]
+    runs = {f"parity {dtype}": v for dtype, v in res["parity"].items()}
+    if "full" in res:
+        runs["full"] = res["full"]
+    return {(name, layout): run[layout]["tokens"]
+            for name, run in runs.items() for layout in LAYOUTS}
+
+
+def serve_meshes(smi, cells=tuple(SERVE_MESH_CELLS)):
     """The 4-card cells of sharded serving (``tools/serve_phase_torch.py
-    --four-card-meshes``): (a) and (b) at (data, model) = (1, 4), one NCCL
-    rank per card; on fewer cards it records that it skipped.  The ranks
-    must agree on every greedy token."""
+    --four-card-meshes``), ``cells`` of ``SERVE_MESH_CELLS``, at (data,
+    model) = (1, 4), one NCCL rank per card; on fewer cards it records
+    that it skipped.  The ranks must agree on every greedy token."""
     cards = torch.cuda.device_count()
     world = math.prod(SERVE_MESH)
     if world > cards:
@@ -3375,17 +3717,17 @@ def serve_meshes(smi):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = launch_mesh.spawn(functools.partial(serve_mesh_rank, smi=smi),
-                              world, device="cuda", timeout_s=1800)
+    ranks = launch_mesh.spawn(
+        functools.partial(serve_mesh_rank, smi=smi, cells=tuple(cells)),
+        world, device="cuda", timeout_s=3000)
     for r in ranks:
-        for layout in LAYOUTS:
-            if r["full"][layout]["tokens"] != ranks[0]["full"][layout][
-                    "tokens"]:
-                raise AssertionError(f"serve_mesh: rank {r['rank']} "
-                                     f"disagrees under {layout}")
+        for cell in cells:
+            if mesh_tokens(r, cell) != mesh_tokens(ranks[0], cell):
+                raise AssertionError(f"serve_mesh {cell}: rank {r['rank']} "
+                                     f"disagrees on the greedy tokens")
     return {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-            "mesh": SERVE_MESH, "seconds": time.perf_counter() - t0,
-            "ranks": ranks}
+            "mesh": SERVE_MESH, "cells": list(cells),
+            "seconds": time.perf_counter() - t0, "ranks": ranks}
 
 
 def main():

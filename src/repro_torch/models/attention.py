@@ -19,7 +19,13 @@ so decode's score contraction sums partials over the axis; ``kvseq``
 splits the sequence into one contiguous block a rank, and decode is
 flash-decoding: each rank attends over its own block and the (max, sum,
 output) partials are combined by a max all-reduce and a sum all-reduce.
-The heads-to-layout moves are the port's ``Repartition``.
+The heads-to-layout moves are the port's ``Repartition``.  Where the
+model axis does not divide the K/V heads (glm4-9b's 2 under TP 4), ``wk``
+and ``wv`` stay whole on every rank, as the reference's ``param_spec``
+leaves them (``repro/sharding/policy.py:296``): each rank computes every
+K/V head, attends its query heads with the K/V heads their groups map to,
+and keeps its part of every K/V head in the cache (``kvdim``: its
+head_dim columns; ``kvseq``: its sequence block), so only q moves.
 """
 
 from __future__ import annotations
@@ -150,25 +156,44 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
     ax = policy.model_axis
     tp = policy.model_size
     hd = cfg.resolved_head_dim
+    kv_whole = cfg.num_kv_heads % tp != 0
+    kh = cfg.num_kv_heads if kv_whole else cfg.num_kv_heads // tp
     q = _split_heads(L.affine_gather(h, p["wq"], axis=ax),
                      cfg.num_heads // tp, hd)
-    k = _split_heads(L.affine_gather(h, p["wk"], axis=ax),
-                     cfg.num_kv_heads // tp, hd)
-    v = _split_heads(L.affine_gather(h, p["wv"], axis=ax),
-                     cfg.num_kv_heads // tp, hd)
+    k = _split_heads(L.affine_gather(h, p["wk"], axis=ax), kh, hd)
+    v = _split_heads(L.affine_gather(h, p["wv"], axis=ax), kh, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     ctx = policy.active_ctx_axis
     if mode == "decode":
-        out = _decode_tp(q, k, v, cache, index, cache_len, policy)
-    elif ctx is not None and mode == "train":
-        out = ring_attention(q, k, v, ctx, chunk=cfg.attn_chunk)
+        out = _decode_tp(q, k, v, cache, index, cache_len, policy, kv_whole)
     else:
-        out = ops.flash_attention(q, k, v, causal=True)
+        kl, vl = ((_kv_of_local_heads(t, cfg, policy) for t in (k, v))
+                  if kv_whole else (k, v))
+        if ctx is not None and mode == "train":
+            out = ring_attention(q, kl, vl, ctx, chunk=cfg.attn_chunk)
+        else:
+            out = ops.flash_attention(q, kl, vl, causal=True)
         if mode == "prefill":
-            _prefill_cache_tp(k, v, cache, index, policy)
+            _prefill_cache_tp(k, v, cache, index, policy, kv_whole)
     out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
     return L.affine_scatter(out, p["wo"], axis=ax)
+
+
+def _kv_of_local_heads(t, cfg, policy):
+    """Of every K/V head, (B, S, KH, hd), the ones this rank's H/tp query
+    heads attend, laid out for the GQA grouping of ``ops.flash_attention``
+    (query head j of n attends K/V head j // (n / kv)): where the rank
+    holds whole groups, their K/V heads; where it holds part of one
+    group, that group's head; otherwise one K/V head per query head."""
+    tp = policy.model_size
+    h_loc = cfg.num_heads // tp
+    group = cfg.num_heads // cfg.num_kv_heads
+    first = prim.axis_index(policy.model_axis) * h_loc
+    if h_loc % group == 0 or group % h_loc == 0:
+        lo = first // group
+        return t[:, :, lo:lo + max(h_loc // group, 1)]
+    return t[:, :, (first + torch.arange(h_loc, device=t.device)) // group]
 
 
 def _heads_to(dim: int, policy) -> Repartition:
@@ -178,48 +203,63 @@ def _heads_to(dim: int, policy) -> Repartition:
     return Repartition(Layout(ax, 2), Layout(ax, dim))
 
 
-def _prefill_cache_tp(k, v, cache, index: int, policy):
-    """This rank's heads of the prompt's K/V, (B, S, KH/tp, hd), into its
-    part of the cache: under ``kvdim`` the head_dim split (B, S, KH,
-    hd/tp) into the first S positions; under ``kvseq`` the sequence split
-    of the whole (padded) buffer, (B, S_buf, KH, hd) a rank, zeros past
-    the prompt."""
-    if policy.kv_layout == "kvdim":
-        move = _heads_to(3, policy)
-        for name, t in (("k", k), ("v", v)):
-            cache[name][index][:, :t.shape[1]] = move(t)
-        return
-    move = _heads_to(1, policy)
+def _prefill_cache_tp(k, v, cache, index: int, policy, kv_whole=False):
+    """The prompt's K/V into this rank's part of the cache: under ``kvdim``
+    the head_dim split (B, S, KH, hd/tp) into the first S positions; under
+    ``kvseq`` the sequence split of the whole (padded) buffer, (B, S_buf,
+    KH, hd) a rank, zeros past the prompt.  k, v: this rank's heads,
+    (B, S, KH/tp, hd), moved by ``Repartition``; with ``kv_whole`` every
+    K/V head, (B, S, KH, hd), of which the rank keeps its part."""
+    me = prim.axis_index(policy.model_axis)
     for name, t in (("k", k), ("v", v)):
         buf = cache[name][index]
-        full = t.new_zeros((t.shape[0], buf.shape[1] * policy.model_size)
-                           + t.shape[2:])
-        full[:, :t.shape[1]] = t
-        buf.copy_(move(full))
+        if policy.kv_layout == "kvdim":
+            d_loc = buf.shape[3]
+            buf[:, :t.shape[1]] = (t[..., me * d_loc:(me + 1) * d_loc]
+                                   if kv_whole else _heads_to(3, policy)(t))
+        elif kv_whole:
+            part = t[:, me * buf.shape[1]:(me + 1) * buf.shape[1]]
+            buf.zero_()
+            buf[:, :part.shape[1]] = part
+        else:
+            full = t.new_zeros((t.shape[0], buf.shape[1] * policy.model_size)
+                               + t.shape[2:])
+            full[:, :t.shape[1]] = t
+            buf.copy_(_heads_to(1, policy)(full))
 
 
-def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy):
+def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy,
+               kv_whole=False):
     """One token's attention, (B, 1, H/tp, hd) -> (B, 1, H/tp, hd), this
-    rank's heads of q, k, v against the sharded cache (module docstring).
+    rank's heads of q against the sharded cache (module docstring); k, v
+    are this rank's K/V heads, or every K/V head with ``kv_whole``.
     Scores, softmax and the p.v contraction in fp32, as
     ``decode_attention``."""
     ax = policy.model_axis
     tp = policy.model_size
     B, _, h_loc, hd = q.shape
+    H = h_loc * tp
     kh_loc = k.shape[2]
-    H, KH = h_loc * tp, kh_loc * tp
+    KH = kh_loc if kv_whole else kh_loc * tp
     group = H // KH
     scale = 1.0 / math.sqrt(hd)
     k_cache, v_cache = cache["k"][index], cache["v"][index]
-    qkv = torch.cat([q, k, v], dim=2)          # (B, 1, (H + 2KH)/tp, hd)
+    me = prim.axis_index(ax)
     if policy.kv_layout == "kvdim":
-        # one all-to-all moves q, k and v to the head_dim split; the
-        # blocks arrive rank-major, each rank's heads in global order
         d_loc = hd // tp
-        moved = _heads_to(3, policy)(qkv).reshape(B, 1, tp, -1, d_loc)
-        q = moved[:, :, :, :h_loc].reshape(B, H, d_loc)
-        k = moved[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, d_loc)
-        v = moved[:, :, :, h_loc + kh_loc:].reshape(B, KH, d_loc)
+        if kv_whole:
+            # only q moves: every rank holds every K/V head whole
+            q = _heads_to(3, policy)(q).reshape(B, H, d_loc)
+            k, v = (t[..., me * d_loc:(me + 1) * d_loc].reshape(B, KH, d_loc)
+                    for t in (k, v))
+        else:
+            # one all-to-all moves q, k and v to the head_dim split; the
+            # blocks arrive rank-major, each rank's heads in global order
+            moved = _heads_to(3, policy)(torch.cat([q, k, v], dim=2))
+            moved = moved.reshape(B, 1, tp, -1, d_loc)
+            q = moved[:, :, :, :h_loc].reshape(B, H, d_loc)
+            k = moved[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, d_loc)
+            v = moved[:, :, :, h_loc + kh_loc:].reshape(B, KH, d_loc)
         k_cache[:, cache_len] = k
         v_cache[:, cache_len] = v
         qf = q.reshape(B, KH, group, d_loc).float()
@@ -235,12 +275,16 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy):
         return Repartition(Layout(ax, 3), Layout(ax, 2))(o)
     # kvseq: q, k, v gathered whole; the owner of position cache_len
     # writes it; every rank attends over its own block (flash-decoding)
-    whole = prim.all_gather(qkv, ax, 2).reshape(B, 1, tp, -1, hd)
-    q = whole[:, :, :, :h_loc].reshape(B, H, hd)
-    k = whole[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, hd)
-    v = whole[:, :, :, h_loc + kh_loc:].reshape(B, KH, hd)
+    if kv_whole:
+        q = prim.all_gather(q, ax, 2).reshape(B, H, hd)
+        k, v = k.reshape(B, KH, hd), v.reshape(B, KH, hd)
+    else:
+        whole = prim.all_gather(torch.cat([q, k, v], dim=2), ax, 2)
+        whole = whole.reshape(B, 1, tp, -1, hd)
+        q = whole[:, :, :, :h_loc].reshape(B, H, hd)
+        k = whole[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, hd)
+        v = whole[:, :, :, h_loc + kh_loc:].reshape(B, KH, hd)
     blk = k_cache.shape[1]
-    me = prim.axis_index(ax)
     if cache_len // blk == me:
         k_cache[:, cache_len % blk] = k
         v_cache[:, cache_len % blk] = v

@@ -13,7 +13,9 @@ FFN with a policy runs ``moe_apply``'s own region.  In prefill and
 decode a policy means sharded serving (``check_serve_policy``): every
 rank holds its own shards and runs ``_tp_sublayer_body`` on its blocks,
 whatever ``explicit_tp`` says (it picks the ring matmuls or the plain
-gather and scatter), the cache sharded by ``policy.kv_layout``.
+gather and scatter), the cache sharded by ``policy.kv_layout``: attention
+on its heads, an SSM mixer on its SSM heads, the MLP on its d_ff block,
+an MoE FFN on its experts.
 ``pipeline_stage_body`` is one pipeline stage on local blocks, run by the
 executor of ``core/pipeline.py``.
 """
@@ -30,8 +32,8 @@ from repro_torch.sharding import Partitioned
 
 from .attention import attention_block, attention_block_tp, attn_init
 from .common import mlp_apply, mlp_init, rmsnorm, rmsnorm_sharded, subtree
-from .moe import moe_apply, moe_init, moe_stage_body
-from .ssm import ssm_block, ssm_init
+from .moe import moe_apply, moe_init, moe_serve_body, moe_stage_body
+from .ssm import ssm_block, ssm_block_tp, ssm_init
 
 
 def layer_kinds(cfg, layer: int) -> tuple[str, str]:
@@ -61,46 +63,53 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
 
 
 def check_serve_policy(cfg, policy):
-    """Refuse what sharded serving does not cover: a mesh axis besides
-    ``data`` and ``model`` (``ValueError``); SSM mixers, MoE FFNs and
-    widths the model axis does not divide (``NotImplementedError``; the
-    reference serves the first two through GSPMD, ROADMAP Queue 1 item
-    13); a ``kvdim`` cache whose head_dim the model axis does not divide;
-    a ``kv_layout`` other than ``kvdim`` and ``kvseq``."""
+    """Refuse what sharded serving does not cover, before anything runs: a
+    mesh axis besides ``data`` and ``model`` and a ``kv_layout`` other
+    than ``kvdim`` and ``kvseq`` (``ValueError``); a width that sharded
+    serving splits over the model axis and the axis does not divide
+    (``NotImplementedError``, naming each): d_model (the residual's
+    features), the query heads, under ``kvdim`` head_dim, d_ff, the SSM
+    heads and d_inner, the experts (the reference refuses those too,
+    ``moe.py``'s expert split) and the shared experts' hidden width.
+    K/V head counts the axis does not divide are served: ``wk`` and
+    ``wv`` stay whole on every rank (``attention_block_tp``)."""
     extra = [n for n in policy.axis_names
              if n not in (policy.data_axis, policy.model_axis)
              and policy.axis_size(n) > 1]
     if extra:
         raise ValueError(f"sharded serving runs over (data, model); the "
                          f"mesh also has {extra}")
+    if policy.kv_layout not in ("kvdim", "kvseq"):
+        raise ValueError(f"kv_layout {policy.kv_layout!r}: kvdim or kvseq")
     kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
-    other = sorted(k for k in kinds if k not in (("attn", "mlp"),
-                                                 ("attn", "none")))
-    if other:
-        raise NotImplementedError(
-            f"sharded serving of {cfg.name}'s {other} sublayers is not "
-            f"ported (ROADMAP Queue 1 item 13: SSM mixers and MoE FFNs "
-            f"under a serve policy); serve it with policy=None")
+    mixers, ffns = {m for m, _ in kinds}, {f for _, f in kinds}
+    widths = {"d_model": cfg.d_model}
+    if "attn" in mixers:
+        widths["num_heads"] = cfg.num_heads
+        if policy.kv_layout == "kvdim":
+            widths["head_dim (kvdim)"] = cfg.resolved_head_dim
+    if "ssm" in mixers:
+        widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
+    if "mlp" in ffns:
+        widths["d_ff"] = cfg.d_ff
+    if "moe" in ffns:
+        widths["num_experts"] = cfg.num_experts
+        if cfg.num_shared_experts:
+            widths["shared experts' d_ff"] = ((cfg.moe_d_ff or cfg.d_ff)
+                                              * cfg.num_shared_experts)
     tp = policy.model_size
-    widths = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
-              "d_model": cfg.d_model, "d_ff": cfg.d_ff}
-    if policy.kv_layout == "kvdim":
-        widths["head_dim (kvdim)"] = cfg.resolved_head_dim
     bad = {k: v for k, v in widths.items() if v % tp}
     if bad:
         raise NotImplementedError(
-            f"sharded serving splits heads, d_model and d_ff over the "
-            f"model axis: {bad} not divisible by its size {tp} (ROADMAP "
-            f"Queue 1 item 13)")
-    if policy.kv_layout not in ("kvdim", "kvseq"):
-        raise ValueError(f"kv_layout {policy.kv_layout!r}: kvdim or kvseq")
+            f"sharded serving of {cfg.name} splits {sorted(widths)} over "
+            f"the model axis: {bad} not divisible by its size {tp}")
 
 
 def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:
     """The explicit-TP fused path covers the attention+MLP sublayer in
     training, and every sublayer in prefill and decode under a policy
-    (sharded serving, which ``check_serve_policy`` holds to attention +
-    MLP); everything else (SSM, MoE) keeps the single-device path.  Unlike
+    (sharded serving, as far as ``check_serve_policy`` admits it);
+    everything else keeps the single-device path in training.  Unlike
     the reference's, the fused body attends through ``ops.flash_attention``
     as the port's ``attention_block`` does, so there is no flash request
     for it to refuse."""
@@ -115,28 +124,40 @@ def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:
             and cfg.num_kv_heads % tp == 0 and cfg.d_ff % tp == 0)
 
 
-def _tp_sublayer_body(p, x, positions, cfg, policy, ffn, *, mode="train",
-                      cache=None, index: int = 0, cache_len=None):
-    """Whole sublayer on local blocks: ONE region spans both the attention
-    and FFN halves, so their four ring matmuls (qkv-gather, out-scatter,
-    up-gather, down-scatter) can overlap compute across the halves.
+def _tp_sublayer_body(p, x, positions, cfg, policy, ffn, *, mixer="attn",
+                      mode="train", cache=None, index: int = 0,
+                      cache_len=None):
+    """Whole sublayer on local blocks: ONE region spans both the mixer and
+    FFN halves, so their ring matmuls (qkv-gather, out-scatter, up-gather,
+    down-scatter) can overlap compute across the halves.
     x: (B_loc, S, d_model/tp).  In prefill and decode (sharded serving)
-    ``cache``/``index``/``cache_len`` reach ``attention_block_tp``."""
+    ``cache``/``index``/``cache_len`` reach the mixer, which is attention
+    (``attention_block_tp``) or, in serving only, the SSM mixer on this
+    rank's heads (``ssm_block_tp``); ``ffn`` is the dense MLP on this
+    rank's d_ff block, none, or in serving the MoE FFN on this rank's
+    experts (``moe_serve_body``)."""
     ax = policy.model_axis
     h = rmsnorm_sharded(x, p["norm_mixer"], ax)
-    x = x + attention_block_tp(subtree(p, "attn"), h, cfg, policy,
-                               positions=positions, mode=mode, cache=cache,
-                               index=index, cache_len=cache_len)
-    if ffn == "mlp":
-        h = rmsnorm_sharded(x, p["norm_ffn"], ax)
-        mp = subtree(p, "mlp")
-        up = L.affine_gather(h, mp["w_up"], axis=ax)
-        if cfg.mlp_type == "swiglu":
-            up = F.silu(L.affine_gather(h, mp["w_gate"], axis=ax)) * up
-        else:
-            up = F.gelu(up, approximate="tanh")
-        x = x + L.affine_scatter(up, mp["w_down"], axis=ax)
-    return x
+    if mixer == "attn":
+        x = x + attention_block_tp(subtree(p, "attn"), h, cfg, policy,
+                                   positions=positions, mode=mode,
+                                   cache=cache, index=index,
+                                   cache_len=cache_len)
+    else:
+        x = x + ssm_block_tp(subtree(p, "ssm"), h, cfg, policy, mode=mode,
+                             cache=cache, index=index)
+    if ffn == "none":
+        return x
+    h = rmsnorm_sharded(x, p["norm_ffn"], ax)
+    if ffn == "moe":
+        return x + moe_serve_body(h, subtree(p, "moe"), cfg, policy)
+    mp = subtree(p, "mlp")
+    up = L.affine_gather(h, mp["w_up"], axis=ax)
+    if cfg.mlp_type == "swiglu":
+        up = F.silu(L.affine_gather(h, mp["w_gate"], axis=ax)) * up
+    else:
+        up = F.gelu(up, approximate="tanh")
+    return x + L.affine_scatter(up, mp["w_down"], axis=ax)
 
 
 def _tp_sublayer_apply(p, x, cfg, policy, *, positions, ffn):
@@ -193,8 +214,9 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
     if _tp_fusable(cfg, policy, mixer, ffn, mode):
         if mode != "train":
             return _tp_sublayer_body(p, x, positions, cfg, policy, ffn,
-                                     mode=mode, cache=cache, index=index,
-                                     cache_len=cache_len), None, aux
+                                     mixer=mixer, mode=mode, cache=cache,
+                                     index=index, cache_len=cache_len), \
+                None, aux
         return _tp_sublayer_apply(p, x, cfg, policy, positions=positions,
                                   ffn=ffn), None, aux
     h = rmsnorm(x, p["norm_mixer"])

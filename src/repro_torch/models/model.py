@@ -236,14 +236,19 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
     tp), KH, hd).  Where tp does not divide max_seq the blocks cover a
     buffer rounded up to a multiple of tp (GSPMD pads the reference's the
     same way); decode masks every position past ``cache_len``, the padding
-    included."""
+    included.  KH is every K/V head under either layout.  An SSM
+    position's states are this rank's channels and heads, whatever the
+    layout: conv (n_super, B/dp, k-1, d_inner/tp), ssm (n_super, B/dp,
+    H/tp, P, N)."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     n_super = cfg.num_layers // cfg.block_period
     hd = cfg.resolved_head_dim
+    d_inner, ssm_heads = cfg.d_inner, cfg.ssm_heads
     if policy is not None:
         check_serve_policy(cfg, policy)
         dp, tp = policy.dp_size, policy.model_size
+        d_inner, ssm_heads = d_inner // tp, ssm_heads // tp
         if batch % dp:
             raise ValueError(f"batch {batch} not divisible by the data "
                              f"axis's size {dp}")
@@ -261,10 +266,10 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
                                                       device=device)
         else:
             cache[f"pos{i}.conv"] = torch.zeros(
-                (n_super, batch, cfg.conv_kernel - 1, cfg.d_inner),
+                (n_super, batch, cfg.conv_kernel - 1, d_inner),
                 dtype=dtype, device=device)
             cache[f"pos{i}.ssm"] = torch.zeros(
-                (n_super, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                (n_super, batch, ssm_heads, cfg.ssm_head_dim,
                  cfg.ssm_state), dtype=torch.float32, device=device)
     return cache
 
@@ -273,25 +278,42 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
 # Sharded serving: this rank's parameters.  Heads and d_ff split over the
 # model axis as the TP train path splits them (column blocks of wq, wk, wv,
 # w_up, w_gate; row blocks of wo, w_down; the sublayer norms' weights with
-# the feature-sharded residual); the embedding, final norm and head whole.
+# the feature-sharded residual); an SSM mixer's as the reference's
+# ``param_spec`` (``repro/sharding/policy.py:315-319``: column blocks of
+# in_z, in_x, in_dt and conv_w, blocks of the per-head and per-channel
+# vectors, row blocks of out_proj; in_B and in_C whole); an MoE FFN's
+# experts on their E dim (the logical "experts"), the router whole and
+# the shared experts as the MLP; wk and wv whole where the model axis does
+# not divide the K/V heads; the embedding, final norm and head whole.
 # ---------------------------------------------------------------------------
 
 _SERVE_SPLIT = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_up": 2,
-                "w_gate": 2, "w_down": 1, "norm_mixer": 1, "norm_ffn": 1}
+                "w_gate": 2, "w_down": 1, "norm_mixer": 1, "norm_ffn": 1,
+                "in_z": 2, "in_x": 2, "in_dt": 2, "conv_w": 2, "a_log": 1,
+                "d_skip": 1, "dt_bias": 1, "ssm_norm": 1, "out_proj": 1,
+                "we_up": 1, "we_gate": 1, "we_down": 1}
+# leaves init_params draws in fp32 whatever the model's dtype, and how
+_FP32_INIT = {"a_log": "log_uniform", "d_skip": "ones", "dt_bias": "zeros",
+              "ssm_norm": "ones", "router": "normal"}
 
 
-def _serve_split(key: str) -> int | None:
-    """The dim of leaf ``key`` split over ``model`` (None: whole)."""
+def _serve_split(cfg, key: str, tp: int) -> int | None:
+    """The dim of leaf ``key`` (its leading dim the stack) split over
+    ``model`` at size ``tp`` (None: whole)."""
     if not key.startswith("blocks."):
         return None
-    return _SERVE_SPLIT.get(key.rsplit(".", 1)[-1])
+    name = key.rsplit(".", 1)[-1]
+    if name in ("wk", "wv") and cfg.num_kv_heads % tp:
+        return None
+    return _SERVE_SPLIT.get(name)
 
 
-def serve_param_parts(params) -> dict:
+def serve_param_parts(cfg, params, tp: int) -> dict:
     """``Partitioned`` declarations of a global params dict for sharded
-    serving: each ``blocks.*`` leaf (n_super, ...) split over ``model``
-    along the dim ``_SERVE_SPLIT`` names, every other leaf whole."""
-    return {k: Partitioned() if (dim := _serve_split(k)) is None
+    serving over a model axis of size ``tp``: each ``blocks.*`` leaf
+    (n_super, ...) split over ``model`` along the dim ``_serve_split``
+    names, every other leaf whole."""
+    return {k: Partitioned() if (dim := _serve_split(cfg, k, tp)) is None
             else Partitioned(*([None] * dim + ["model"])) for k in params}
 
 
@@ -301,7 +323,8 @@ def shard_params(cfg, params, policy) -> dict:
     split leaf is a fresh contiguous copy; a whole one is the leaf
     itself."""
     check_serve_policy(cfg, policy)
-    blocks = local_blocks(serve_param_parts(params), params, policy)
+    parts = serve_param_parts(cfg, params, policy.model_size)
+    blocks = local_blocks(parts, params, policy)
     return {k: v.contiguous() for k, v in blocks.items()}
 
 
@@ -314,9 +337,12 @@ def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
     the data replicas hold the same shards.  The values are not
     ``init_params(seed)``'s cut (that would need the whole draw).  The
     leaves and their global shapes are ``init_params``' own
-    (``launch.specs.param_specs``, nothing allocated): the norm weights
-    ones in fp32, every other leaf N(0, 1/d_in) in ``dtype``, d_in the
-    global leaf's second-last dim."""
+    (``launch.specs.param_specs``, nothing allocated), and so are their
+    distributions: in fp32 the norm weights, ``ssm_norm`` and ``d_skip``
+    ones, ``dt_bias`` zeros, ``a_log`` uniform in [0, log 16) (A
+    log-uniform in [1, 16)) and the router N(0, 1/d); every other leaf
+    N(0, 1/d_in) in ``dtype``, d_in the global leaf's second-last dim
+    (``conv_w``'s is its kernel width)."""
     from repro_torch.launch.specs import param_specs
     check_serve_policy(cfg, policy)
     device = resolve_device(device)
@@ -328,18 +354,25 @@ def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
     mine = torch.Generator(device=device).manual_seed(seed + 1 + me)
     out = {}
     for key, like in param_specs(cfg).items():
-        shape, dim = tuple(like.shape), _serve_split(key)
-        split = dim is not None
-        if split:
+        shape, dim = tuple(like.shape), _serve_split(cfg, key, tp)
+        if dim is not None:
             shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
-        if key.rsplit(".", 1)[-1].startswith("norm"):
-            out[key] = torch.ones(shape, dtype=torch.float32, device=device)
-            continue
-        stacked = key.startswith("blocks.")
-        out[key] = normal_init(shape[1:] if stacked else shape,
-                               1 / math.sqrt(like.shape[-2]), dtype,
-                               mine if split else whole,
-                               stacked=shape[0] if stacked else 0)
+        gen = whole if dim is None else mine
+        name = key.rsplit(".", 1)[-1]
+        how = "ones" if name.startswith("norm") else _FP32_INIT.get(name)
+        if how in ("ones", "zeros"):
+            out[key] = torch.full(shape, float(how == "ones"),
+                                  dtype=torch.float32, device=device)
+        elif how == "log_uniform":
+            out[key] = torch.rand(shape, generator=gen,
+                                  device=device) * math.log(16.0)
+        else:
+            stacked = key.startswith("blocks.")
+            out[key] = normal_init(
+                shape[1:] if stacked else shape,
+                1 / math.sqrt(like.shape[-2]),
+                torch.float32 if how == "normal" else dtype, gen,
+                stacked=shape[0] if stacked else 0)
     return out
 
 

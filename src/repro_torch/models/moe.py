@@ -32,6 +32,15 @@ as the reference's ``pmean``.  The expert products (``ecd,edh->ech``) are
 ``torch.bmm``: the reference computes them outside any Pallas kernel, so
 MoE adds no kernel.  ``num_experts % ep != 0`` raises before anything
 runs instead of silently mis-splitting.
+
+Sharded serving (``moe_serve_body``, prefill and decode under a serve
+policy) splits the experts over the model axis, the EP-over-model overload
+of ``param_spec``'s logical "experts", without the all-to-all: the tokens
+are already replicated over ``model`` there, so every rank routes them
+all with the whole router (the same plan and capacity on every model
+rank, and the reference's: over this data replica's tokens) and runs only
+its own experts; the partial outputs meet in one reduce-scatter, the
+paper's sum-reduce.
 """
 
 from __future__ import annotations
@@ -244,6 +253,44 @@ def moe_stage_body(x, p, cfg, *, ep_axis=None, stat_axes=()):
     if cfg.num_shared_experts:
         y = y + mlp_apply(x, subtree(p, "shared"), "swiglu")
     return y, aux
+
+
+def moe_serve_body(h, p, cfg, policy):
+    """The MoE FFN for sharded serving, inside the serving region.
+
+    h: (B_loc, S, d_model/tp), the normed residual feature-sharded over
+    the model axis; p: the whole router, this rank's E/tp experts (a
+    block of the E dim of ``we_up``, ``we_gate``, ``we_down``) and its
+    d_ff blocks of the shared experts' SwiGLU.  h is gathered whole once;
+    routing, the slot plan and the capacity (over this replica's B_loc x
+    S tokens) are the same on every model rank; each rank runs its own
+    experts over their capacity slots and combines a partial output in
+    which tokens routed elsewhere get zero, adds the shared experts'
+    partial, and the partials are reduce-scattered into the residual's
+    feature split.  The reference's ``moe_apply`` region dispatches the
+    replicated tokens with an ``AllToAll`` on the model axis, which runs
+    every expert tp times; both compute the same function up to the
+    order of summation.  Returns (B_loc, S, d_model/tp)."""
+    ax = policy.model_axis
+    tp = policy.model_size
+    _check_expert_split(cfg, tp, ax)
+    x = prim.all_gather(h, ax, 2)
+    B, S, d = x.shape
+    e_loc = cfg.num_experts // tp
+    lo = prim.axis_index(ax) * e_loc
+    weights = [p[k] for k in EXPERT_LEAVES]
+
+    def expert_fn(disp):  # (E, C, d): the slots of every expert
+        out = torch.zeros_like(disp)
+        out[lo:lo + e_loc] = expert_ffn(disp[lo:lo + e_loc], *weights)
+        return out
+
+    y, _ = _dispatch_combine_local(x.reshape(B * S, d), p["router"], cfg,
+                                   expert_fn)
+    y = y.reshape(B, S, d)
+    if cfg.num_shared_experts:
+        y = y + mlp_apply(x, subtree(p, "shared"), "swiglu")
+    return prim.reduce_scatter(y, ax, 2)
 
 
 def moe_apply(x, p, cfg, policy=None):

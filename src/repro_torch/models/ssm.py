@@ -7,6 +7,14 @@ the host (imported here too, as the reference's ``ssm.py`` defines it).
 ``ssd_chunked`` is the chunk step of the reference written as a Python loop
 over chunks (the reference's ``lax.scan``); the O(1)-state decode step is
 plain PyTorch, as in the reference.
+
+Under a serve policy (``ssm_block_tp``, prefill and decode) every rank
+runs the mixer on its own SSM heads: the reference's split
+(``repro/sharding/policy.py:315-319``: in_z, in_x, in_dt, conv_w and the
+per-head vectors over ``model``, out_proj by rows, in_B and in_C whole)
+with its heads over ``model`` (``repro/models/ssm.py:157-158``).  The conv
+and the scan are head-local, so the only collectives are the features'
+gather, the gated norm's all-reduce and out_proj's reduce-scatter.
 """
 
 from __future__ import annotations
@@ -16,10 +24,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import layers as L
+from repro_torch.core import primitives as prim
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-exported)
 
-from .common import dense_init, normal_init, rmsnorm
+from .common import dense_init, normal_init, rmsnorm, rmsnorm_sharded
 
 
 def ssm_init(cfg, dtype, generator, stacked: int = 0) -> dict:
@@ -129,3 +139,48 @@ def ssm_block(p, x, cfg, *, mode, cache=None, index: int = 0):
         cache["ssm"][index].copy_(h_new)
     state = {"conv": new_conv, "ssm": h_new} if mode == "prefill" else None
     return out, state
+
+
+def ssm_block_tp(p, h, cfg, policy, *, mode, cache, index: int = 0):
+    """The Mamba2 sub-layer on this rank's SSM heads, for sharded serving
+    (prefill and decode, inside the serving region).
+
+    h: (B_loc, S, d_model/tp), the normed residual feature-sharded over
+    the model axis.  p: this rank's shards (module docstring).  The
+    features are gathered once; z, x and dt come from this rank's column
+    blocks, B and C from the whole in_B and in_C; the causal conv runs on
+    this rank's d_inner/tp channels and the scan (``ops.ssd_scan`` in
+    prefill, ``ssd_decode_step`` in decode) on its H/tp heads with the
+    whole B and C; the gated norm's mean of squares is over the global
+    d_inner (``rmsnorm_sharded``); out_proj's row block reduce-scatters
+    into the residual's feature split.  ``cache``: this rank's part of
+    ``models.init_cache(..., policy=)``; prefill writes the prompt's final
+    conv and SSM states into ``cache["conv"][index]`` and
+    ``cache["ssm"][index]`` in place, decode reads and updates them.
+    Returns the sub-layer's output, (B_loc, S, d_model/tp)."""
+    ax = policy.model_axis
+    nh, pd = cfg.ssm_heads // policy.model_size, cfg.ssm_head_dim
+    x = prim.all_gather(h, ax, 2)
+    z = x @ p["in_z"]
+    xs = x @ p["in_x"]
+    Bm = x @ p["in_B"]
+    Cm = x @ p["in_C"]
+    dt = x @ p["in_dt"]
+
+    conv, ssm = cache["conv"][index], cache["ssm"][index]
+    xs, new_conv = causal_conv1d(xs, p["conv_w"],
+                                 conv if mode == "decode" else None)
+    xs = F.silu(xs)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a_neg = -torch.exp(p["a_log"])
+    xh = xs.reshape(xs.shape[0], xs.shape[1], nh, pd)
+    if mode == "decode":
+        y, h_new = ssd_decode_step(xh, dt, a_neg, Bm, Cm, ssm)
+    else:
+        y, h_new = ops.ssd_scan(xh, dt, a_neg, Bm, Cm,
+                                chunk=min(64, xs.shape[1]))
+    y = y + (p["d_skip"][None, None, :, None] * xh.float()).to(y.dtype)
+    y = rmsnorm_sharded(y.reshape(xs.shape) * F.silu(z), p["ssm_norm"], ax)
+    conv.copy_(new_conv)
+    ssm.copy_(h_new)
+    return L.affine_scatter(y, p["out_proj"], axis=ax)

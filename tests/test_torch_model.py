@@ -291,8 +291,9 @@ def test_decode_attention_matches_jax():
 
 
 def test_unported_families_raise():
-    """What the port still lacks raises naming its ROADMAP item: sharded
-    serving of SSM mixers and MoE FFNs (Queue 1 item 13).  The ``embeds``
+    """What the port refuses raises naming why: sharded serving of widths
+    the model axis does not divide (SSM mixers and MoE FFNs serve
+    otherwise, ``test_torch_serve_mixers_md``).  The ``embeds``
     frontends serve now.  A pipeline stage over a live ctx axis rings
     attention, and refuses an SSM mixer there (the reference scans each
     shard from zero state).  MoE no longer raises: kimi's and jamba's
@@ -312,8 +313,8 @@ def test_unported_families_raise():
 
     jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
     jp = init_params(jamba, torch.Generator().manual_seed(0), "cpu")
-    serve_pol = Policy.for_mesh(Mesh(("data", "model"), (1, 2)))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    serve_pol = Policy.for_mesh(Mesh(("data", "model"), (1, 16)))
+    with pytest.raises(NotImplementedError, match="ssm_heads"):
         forward(jp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, jamba,
                 mode="prefill", policy=serve_pol)
 

@@ -16,8 +16,8 @@ mistral-large-123b (fp32).
   data replicas, and serves finite logits.
 - ``init_rank_params`` draws ``init_params``' leaves at its
   distributions (N(0, 1/d_in) of the global leaf, unit norm weights).
-- Host only: the refusals (SSM mixers, MoE FFNs, widths the model axis
-  does not divide, axes besides data and model).
+- Host only: the refusals (widths the model axis does not divide, SSM
+  heads and experts among them; axes besides data and model).
 """
 
 import functools
@@ -170,24 +170,29 @@ def _policy(shape, names=("data", "model"), **kw):
     return Policy.for_mesh(_FakeMesh(shape, names), **kw)
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("mamba2-370m", "item 13"),            # SSM mixers
-    ("jamba-v0.1-52b", "item 13"),         # SSM mixers and MoE FFNs
-    ("kimi-k2-1t-a32b", "item 13"),        # MoE FFNs
+@pytest.mark.parametrize("arch,tp,match", [
+    ("mamba2-370m", 16, "ssm_heads"),      # SSM mixers: 8 heads
+    ("jamba-v0.1-52b", 8, "num_experts"),  # SSM mixers and MoE FFNs
+    ("kimi-k2-1t-a32b", 8, "num_experts"),  # MoE FFNs: 4 experts
 ])
-def test_serving_refuses_ssm_and_moe(arch, match):
+def test_serving_refuses_ssm_and_moe(arch, tp, match):
+    """SSM mixers and MoE FFNs are served (``test_torch_serve_mixers_md``
+    holds them to the reference); refused only where the model axis does
+    not divide their heads or experts."""
+    cfg = reduced(get_config(arch))
+    check_serve_policy(cfg, _policy((2, 2)))
+    check_serve_policy(cfg, _policy((2, 4)))
     with pytest.raises(NotImplementedError, match=match):
-        check_serve_policy(reduced(get_config(arch)), _policy((2, 2)))
+        check_serve_policy(cfg, _policy((1, tp)))
 
 
 def test_serving_refuses_heads_the_model_axis_does_not_divide():
     with pytest.raises(NotImplementedError, match="num_heads"):
         check_serve_policy(CFG, _policy((1, 3)))
-    # glm4-9b has 2 kv heads: TP 2 serves it, TP 4 is refused
+    # glm4-9b has 2 kv heads: TP 2 and TP 4 serve it (wk, wv whole at 4)
     glm = get_config("glm4-9b")
     check_serve_policy(glm, _policy((1, 2)))
-    with pytest.raises(NotImplementedError, match="num_kv_heads"):
-        check_serve_policy(glm, _policy((1, 4)))
+    check_serve_policy(glm, _policy((1, 4)))
     with pytest.raises(NotImplementedError, match="head_dim"):
         check_serve_policy(CFG, _policy((1, 32), kv_layout="kvdim"))
 
@@ -197,7 +202,7 @@ def test_serving_refuses_other_axes_and_layouts():
         check_serve_policy(CFG, _policy((2, 2, 2), ("data", "ctx", "model")))
     with pytest.raises(ValueError, match="kv_layout"):
         check_serve_policy(CFG, _policy((1, 2), kv_layout="kvboth"))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="ssm_heads"):
         ServeEngine(reduced(get_config("mamba2-370m")), {"embed":
-                    torch.zeros(1)}, _policy((1, 2)), max_seq=8,
+                    torch.zeros(1)}, _policy((1, 16)), max_seq=8,
                     batch_size=2)

@@ -9,7 +9,10 @@ musicgen-medium (stub frontends: embeds in place of tokens), glm4-9b
 also from a checkpoint, and glm4-9b, jamba-v0.1-52b and mamba2-370m
 sharded over a (data, model) mesh; glm4-9b is
 trained, also with its sequence over a ctx axis (ring attention), and
-through checkpoints, injected faults and a mesh shrink.
+through checkpoints, injected faults and a mesh shrink; mamba2-370m is
+trained at all 48 layers; and the dry run's predictions (kernel calls,
+peak memory, bound time, traced on ``meta``) are held against three of
+those cells.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -59,7 +62,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    after: 8 flash launches (tensor-core route) and 17 norms a step.  Per
    step loss, grad norm, skip flag and time; the median step, tokens/s,
    the model-FLOPs share of the bf16 peak, peak memory, and one more step
-   split into forward, backward and optimizer by CUDA events.
+   split into forward, backward and optimizer by CUDA events.  Then one
+   step of ``build_train_step`` timed for phase 18, its launches and peak
+   memory above what was allocated before the train state.
 9. dist: the paper's parallel primitives, every ``LinearOp`` and its
    adjoint, and the memory operators on CUDA tensors, through
    ``repro_torch.launch.dist_check`` in a world of
@@ -225,6 +230,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and glm4-9b (2 K/V heads under TP 4), run in
    ``tools/serve_phase_torch.py --four-card-meshes`` (``serve_meshes``).
    One line ``{"serve_sharded": {...}}``.
+17. train mamba2: phase 8 for mamba2-370m at all 48 layers (state 4.4 GB
+   at 12 bytes a parameter), bf16, B 8, S 2048 (the serve cell's shape),
+   5 AdamW steps: 48 SSD launches (tensor-core route) and 97 norms a
+   step; its backward recomputes through the plain SSD scan.  Run right
+   after phase 8.
+18. dryrun: the dry run held against the card (right after phase 17).
+   ``repro_torch.launch.dryrun.world1_cell`` traces on ``meta``, in this
+   process and after the card has run them, three cells: serve glm4-9b
+   (40 layers, B 4, prompt 1024: prefill and one decode step, measured
+   here), train glm4-9b at 8 layers (B 4, S 1024) and train mamba2-370m
+   (the steps phases 8 and 17 measured; ~60 s of host tracing).  For
+   each: the traced kernel calls equal to the card's launches by kernel
+   and route, the predicted peak within 10% of the card's
+   ``max_memory_allocated()`` above its baseline, and the roofline's bound
+   time beside the measured time as a share (no pass or fail).  One
+   ``dryrun_vs_card`` line a cell.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -267,8 +288,9 @@ from repro_torch.core.compile import region  # noqa: E402
 from repro_torch.core import ring_attention as ring  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.cost import kernel_cost  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
-from repro_torch.launch import dist_check, serve  # noqa: E402
+from repro_torch.launch import dist_check, dryrun, serve  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import (forward,  # noqa: E402
@@ -286,6 +308,7 @@ from repro_torch.models.model import DTYPES  # noqa: E402
 from repro_torch.models.ssm import ssm_block  # noqa: E402
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.sharding import Policy  # noqa: E402
 from repro_torch.train import (batch_to_device,  # noqa: E402
@@ -297,11 +320,6 @@ from repro_torch.train import (batch_to_device,  # noqa: E402
 GLM, MAMBA = "glm4-9b", "mamba2-370m"
 SERVE = {GLM: {"batch": 4, "prompt_len": 1024, "steps": 32},
          MAMBA: {"batch": 8, "prompt_len": 2048, "steps": 32}}
-# Dense peaks from NVIDIA's data sheets: (memory bytes/s, bf16 tensor FLOP/s,
-# fp32 FLOP/s outside the tensor cores).
-PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
-         "H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100 NVL": (3.9e12, 835e12, 60e12)}
 # The reference's own pins (tests/test_kernels.py:36-38, 147).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -337,6 +355,20 @@ ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 BACKWARD = "plain recompute, as repro/kernels/ops.py"
 # the train cell: glm4-9b's published widths, depth cut from 40 to 8 layers
 TRAIN = {"layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3}
+# phase 17: mamba2-370m at all 48 layers, the serve cell's shape
+TRAIN_MAMBA = {"layers": 48, "batch": 8, "seq": 2048, "steps": 5, "lr": 1e-3}
+TRAINS = {GLM: TRAIN, MAMBA: TRAIN_MAMBA}
+# phase 18: the one-device dry run on meta of three cells the card runs,
+# (kind, arch, layers, batch, seq)
+DRYRUN_CELLS = {
+    f"serve {GLM}": ("serve", GLM, 40, SERVE[GLM]["batch"],
+                     SERVE[GLM]["prompt_len"]),
+    f"train {GLM}": ("train", GLM, TRAIN["layers"], TRAIN["batch"],
+                     TRAIN["seq"]),
+    f"train {MAMBA}": ("train", MAMBA, TRAIN_MAMBA["layers"],
+                       TRAIN_MAMBA["batch"], TRAIN_MAMBA["seq"]),
+}
+DRYRUN_PEAK_TOL = 0.10    # predicted peak within 10% of the card's
 # the region phase: glm4-9b's sublayer at full width; the reference's pins
 # for the explicit-TP sublayer (tests/md/test_dist_jit.py:77-126)
 REGION = {"batch": 2, "seq": 1024, "iters": 10}
@@ -465,11 +497,12 @@ def emit(**row):
     print(json.dumps(row), flush=True)
 
 
-def peaks(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return f"H100 {key}", PEAKS[f"H100 {key}"]
-    return "H100 SXM", PEAKS["H100 SXM"]
+peaks = roofline.peaks
+
+
+def card_bound(cost, dtype):
+    """``roofline.bound`` of a ``kernel_cost`` on this card's peaks."""
+    return roofline.bound(cost, dtype, peaks(torch.cuda.get_device_name(0))[1])
 
 
 def cuda_ms(fn, iters=20):
@@ -612,7 +645,6 @@ def phase_head_dim_112(gen):
     cfg = get_config(KIMI)
     B, S = KIMI_ATTN["batch"], KIMI_ATTN["seq"]
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    _, (bw, flops_bf16, flops_fp32) = peaks(torch.cuda.get_device_name(0))
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (randn((B, S, n, hd), dtype, gen) for n in (H, KH, KH))
         before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
@@ -623,9 +655,8 @@ def phase_head_dim_112(gen):
                           f"{dtype} causal", got, ref.attention_ref(q, k, v),
                           FLASH_TOL[dtype])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nbytes = dtype.itemsize * (2 * q.numel() + k.numel() + v.numel())
-        work = 4 * B * H * hd * (S * (S + 1) // 2)
-        peak = flops_bf16 if dtype == torch.bfloat16 else flops_fp32
+        bound = card_bound(kernel_cost(
+            "flash_attention", q.shape, k.shape, v.shape, dtype=dtype), dtype)
         emit(phase="timing_hd112", arch=KIMI, route=ROUTES[dtype],
              dtype=str(dtype), shape=f"q ({B},{S},{H},{hd}) k/v "
              f"({B},{S},{KH},{hd}) causal", max_abs_err=err,
@@ -633,9 +664,7 @@ def phase_head_dim_112(gen):
              plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), iters=5),
              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=True, enable_gqa=True)),
-             bound_ms=max(nbytes / bw, work / peak) * 1e3,
-             bound_by="bytes" if nbytes / bw >= work / peak
-             else "operations")
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def phase_tensor_core_checks(gen):
@@ -709,8 +738,10 @@ def refuse(case, fn):
 
 
 def timing_row(name, route, dtype, cores, source, replaces, tpu, shape,
-               err, fn, plain, library, nbytes, work, peak_flops, iters=20):
-    bw = peaks(torch.cuda.get_device_name(0))[1][0]
+               err, fn, plain, library, cost, iters=20):
+    """``cost``: the call's ``kernel_cost``, priced at ``dtype``'s
+    peak."""
+    nbytes, work = cost["bytes"], cost["flops"]
     row = {"name": name, "route": route, "impl": route, "dtype": str(dtype),
            "cores": cores, "source": source, "replaces": replaces, "tpu": tpu,
            "shape": shape, "max_abs_err": err,
@@ -718,11 +749,8 @@ def timing_row(name, route, dtype, cores, source, replaces, tpu, shape,
            "plain_ms": cuda_ms(plain, iters=max(3, iters // 4)),
            "library_ms": None if library is None else cuda_ms(library,
                                                               iters=iters),
-           "bytes": nbytes, "flops": work,
-           "bytes_ms": nbytes / bw * 1e3, "flops_ms": work / peak_flops * 1e3}
-    row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
-    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["flops_ms"]
-                       else "operations")
+           "bytes": nbytes, "flops": work}
+    row.update(card_bound(cost, dtype))
     row["tflops"] = work / row["ms"] / 1e9
     row["gbps"] = nbytes / row["ms"] / 1e6
     emit(phase="timing", **row)
@@ -733,7 +761,6 @@ def phase_timing(gen):
     """Each kernel's, per route, its plain version's and a library call's
     times at its serving shape (the bf16 rows are the serving route; the
     fp32 rows time the CUDA-core kernels at the same shapes)."""
-    _, (_, flops_bf16, flops_fp32) = peaks(torch.cuda.get_device_name(0))
     bf16 = torch.bfloat16
     rows = []
     B, S, H, KH, hd = 4, 1024, 32, 2, 128
@@ -757,9 +784,8 @@ def phase_timing(gen):
             lambda: ref.attention_ref(q, k, v),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
-            size * (2 * q.numel() + k.numel() + v.numel()),
-            4 * B * H * hd * (S * (S + 1) // 2),   # causal (q, k) pairs
-            flops_bf16 if tc else flops_fp32))
+            kernel_cost("flash_attention", q.shape, k.shape, v.shape,
+                        dtype=dtype)))
 
     d = 4096   # the norm timed at glm4-9b's prefill
     x = randn((B * S, d), bf16, gen)
@@ -774,18 +800,13 @@ def phase_timing(gen):
         f"x ({B * S},{d}) bf16, w ({d},) fp32", err,
         lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
         lambda: F.rms_norm(x, (d,), w_lib, 1e-6),
-        2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel(), flops_bf16,
-        iters=100))
+        kernel_cost("rmsnorm", x.shape, w.shape, dtype=bf16,
+                    w_dtype=w.dtype), iters=100))
 
     # the SSD scan at mamba2-370m's prefill of the serve phase: bf16 with dt
     # and A drawn as the block makes them; fp32 at the sweep's draws, where
     # the fp32 pin holds between two chunked forms (PERF.md)
     B, S, H, P, N, L = 8, 2048, 32, 64, 128, 64
-    nc = -(-S // L)
-    # C B^T once per (batch, chunk); per head and chunk the intra product
-    # (2 L^2 P), the inter product (2 L N P) and the state update (2 L P N)
-    work = B * nc * 2 * L * L * N + B * H * nc * (2 * L * L * P
-                                                  + 4 * L * N * P)
     for dtype in (bf16, torch.float32):
         tc = dtype == bf16
         args = ssd_inputs(B, S, H, P, N, dtype, gen, model=tc)
@@ -796,7 +817,6 @@ def phase_timing(gen):
         # both sides form the state in fp32 from the same inputs
         err = max(err, check_close(f"ssd serving shape h_final {dtype}", h,
                                    want_h, SSD_TOL[torch.float32]))
-        size = dtype.itemsize
         rows.append(timing_row(
             "ssd_scan" if tc else "ssd_scan_fp32", "cuda", dtype,
             "tensor (mma.sync)" if tc else "CUDA cores",
@@ -809,9 +829,8 @@ def phase_timing(gen):
             lambda: ops.ssd_scan(*args, chunk=L),
             lambda: ref.ssd_chunked(*args, chunk=L),
             None,   # no one PyTorch call computes the SSD scan
-            (2 * size * B * S * H * P + 4 * B * S * H + 4 * H
-             + 2 * size * B * S * N + 4 * B * H * P * N),
-            work, flops_bf16 if tc else flops_fp32, iters=10))
+            kernel_cost("ssd_scan", *(t.shape for t in args),
+                        dtype=dtype, chunk=L), iters=10))
     # the bf16 SSD kernel at half and twice the serving batch: 128, 256 and
     # 512 blocks (one block per (batch, head)) on 132 SMs, two a SM
     for Bb in (4, 8, 16):
@@ -1200,35 +1219,65 @@ def step_split(cfg, state, batch, opt):
             enumerate(("forward_ms", "backward_ms", "optimizer_ms"))}
 
 
-def phase_train(smi):
-    """bf16 glm4-9b at full width, 8 layers, through launch/train.train:
-    5 AdamW steps with the launch counts read around them."""
-    cfg = dataclasses.replace(get_config(GLM), num_layers=TRAIN["layers"])
-    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+def card_step(cfg, state, opt, B, S, base):
+    """One more train step of ``build_train_step`` (``launch.train.train``'s
+    step) on the card from ``state``, the card's side of a phase-18 cell:
+    its ms (synchronised), launch counts and peak bytes above ``base``
+    (allocated before the cell's state existed)."""
+    step = build_train_step(dataclasses.replace(cfg, grad_accum=1), opt)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=1)).batch(0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, met = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if met["skipped"]:
+        raise AssertionError("card step: skipped")
+    return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            **snapshot()}
+
+
+def phase_train(smi, arch=GLM):
+    """bf16 ``arch`` at full width (glm4-9b cut to 8 layers; mamba2-370m
+    at all 48) through launch/train.train: 5 AdamW steps with the launch
+    counts read around them; then one step split by CUDA events and one
+    measured for phase 18.  Returns (launch snapshot, that step)."""
+    run = TRAINS[arch]
+    base_cfg = get_config(arch)
+    cfg = dataclasses.replace(base_cfg, num_layers=run["layers"])
+    B, S, steps = run["batch"], run["seq"], run["steps"]
     logs = []
+    gc.collect()
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     state, hist = launch_train.train(cfg, steps=steps, batch=B, seq=S,
-                                     lr=TRAIN["lr"], seed=0, device="cuda",
+                                     lr=run["lr"], seed=0, device="cuda",
                                      logger=logs.append)
     snap = snapshot()
     peak = torch.cuda.max_memory_allocated()
     n = sum(p.numel() for p in state["params"].values())
     for rec in hist:
-        emit(phase="train_step", arch=GLM, step=rec["step"],
+        emit(phase="train_step", arch=arch, step=rec["step"],
              loss=rec["loss"], grad_norm=rec["grad_norm"],
              skipped=rec["skipped"], step_ms=rec["sec"] * 1e3)
     secs = sorted(rec["sec"] for rec in hist[1:])
     median_s = (secs[(len(secs) - 1) // 2] + secs[len(secs) // 2]) / 2
     opt = make_optimizer(cfg.optimizer, total_steps=steps,
-                         base_lr=TRAIN["lr"])
+                         base_lr=run["lr"])
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                    global_batch=B, seed=0)).batch(steps)
     split = step_split(cfg, state, batch, opt)
     flops = 6 * n * B * S
     peak_bf16 = peaks(torch.cuda.get_device_name(0))[1][1]
-    emit(phase="train", arch=GLM, layers=cfg.num_layers, cut="depth 40 -> 8",
+    cut = (f"depth {base_cfg.num_layers} -> {cfg.num_layers}"
+           if cfg.num_layers != base_cfg.num_layers else "none")
+    emit(phase="train", arch=arch, layers=cfg.num_layers, cut=cut,
          dtype="bfloat16", batch=B, seq=S, steps=steps, params=n,
          losses=[rec["loss"] for rec in hist], median_step_ms_2_5=median_s
          * 1e3, tokens_per_s=B * S / median_s, model_flops_per_step=flops,
@@ -1237,19 +1286,105 @@ def phase_train(smi):
          split=split, health=hist.health, launches=snap["launches"],
          routes=snap["routes"], log=logs, nvidia_smi=smi)
     if len(hist) != steps or any(not math.isfinite(r["loss"]) for r in hist):
-        raise AssertionError(f"train: losses {[r['loss'] for r in hist]}")
+        raise AssertionError(f"train {arch}: losses "
+                             f"{[r['loss'] for r in hist]}")
     if any(r["skipped"] for r in hist) or state["skipped_steps"]:
-        raise AssertionError("train: a step was skipped")
-    want = {"flash_attention": cfg.num_layers * steps,
-            "rmsnorm": (2 * cfg.num_layers + 1) * steps, "ssd_scan": 0}
+        raise AssertionError(f"train {arch}: a step was skipped")
+    want = {k: v * steps for k, v in expected_launches(cfg, 0).items()}
     if snap["launches"] != want:
-        raise AssertionError(f"train: launches {snap['launches']}, "
+        raise AssertionError(f"train {arch}: launches {snap['launches']}, "
                              f"expected {want}")
-    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
-    if snap["routes"]["flash_attention"] != routes:
-        raise AssertionError(f"train: flash routes "
-                             f"{snap['routes']['flash_attention']}")
-    return snap
+    for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
+        routes = {"tensor_core": want[name], "cuda_core": 0}
+        if snap["routes"][name] != routes:
+            raise AssertionError(f"train {arch}: {name} routes "
+                                 f"{snap['routes'][name]}")
+    return snap, card_step(cfg, state, opt, B, S, base)
+
+
+def serve_cell(arch, layers, B, S):
+    """The card's side of a phase-18 serve cell: ``ServeEngine``'s prefill
+    of a (B, S) prompt and one decode step on a cache of S + 1 positions
+    (a warm-up first), timed (synchronised) with the launch counts and the
+    peak bytes above what was allocated before the parameters."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    engine = ServeEngine(cfg, init_params(cfg, gen, "cuda"), max_seq=S + 1,
+                         batch_size=B)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+
+    def request():
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompt)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.decode_step(cache, tok, S)
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    request()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prefill_ms, decode_ms = request()
+    out = {"ms": prefill_ms + decode_ms, "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           **snapshot()}
+    del engine, prompt
+    return out
+
+
+def phase_dryrun(smi, cells):
+    """18. The dry run held against the card: for each of ``DRYRUN_CELLS``,
+    after the card has run it, the one-device meta trace
+    (``launch.dryrun.world1_cell``, in this process): its kernel calls
+    (equal to the card's launches by kernel and route), its predicted peak
+    (within DRYRUN_PEAK_TOL of the card's) and its roofline bound beside
+    the measured time (a share, no pass or fail).  ``cells`` holds the
+    train cells phases 8 and 17 measured; the serve cell is measured
+    here."""
+    _, arch, layers, B, S = DRYRUN_CELLS[f"serve {GLM}"]
+    cells[f"serve {GLM}"] = serve_cell(arch, layers, B, S)
+    out = {}
+    for name, spec in DRYRUN_CELLS.items():
+        pred, card = dryrun.world1_cell(*spec), cells[name]
+        want = {k: v for k, v in card["launches"].items() if v}
+        want_routes = {k: {r: n for r, n in v.items() if n}
+                       for k, v in card["routes"].items()}
+        want_routes = {k: v for k, v in want_routes.items() if v}
+        got_routes = {k: v for k, v in pred["kernel_routes"].items()
+                      if k in ops.ROUTE_LAUNCHES}
+        peak = pred["memory"]["peak_per_device_GiB"] * 2**30
+        bound_s = pred["roofline"]["t_bound_s"]
+        row = {"kernel_calls": pred["kernel_calls"], "card_launches": want,
+               "kernel_routes": got_routes, "card_routes": want_routes,
+               "predicted_peak_bytes": peak,
+               "card_peak_bytes": card["peak_bytes"],
+               "peak_ratio": peak / card["peak_bytes"],
+               "bound_ms": bound_s * 1e3, "bound_by":
+               pred["roofline"]["bottleneck"], "card_ms": card["ms"],
+               "bound_share_of_card": bound_s * 1e3 / card["ms"],
+               "roofline": pred["roofline"], "trace_s": pred["trace_s"],
+               "source": pred["source"]}
+        if "prefill_ms" in card:
+            row.update(prefill_ms=card["prefill_ms"],
+                       decode_ms=card["decode_ms"])
+        out[name] = row
+        emit(phase="dryrun_vs_card", cell=name, **row, nvidia_smi=smi)
+        if pred["kernel_calls"] != want or got_routes != want_routes:
+            raise AssertionError(f"dry run {name}: kernel calls "
+                                 f"{pred['kernel_calls']} {got_routes}, card "
+                                 f"{want} {want_routes}")
+        if abs(row["peak_ratio"] - 1) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dry run {name}: predicted peak {peak} B, "
+                                 f"card {card['peak_bytes']} B")
+    return out
 
 
 def phase_dist(smi):
@@ -1671,7 +1806,6 @@ def moe_kernel_checks():
     attention bf16 with GQA group 4 (32 over 8 heads, hd 128, causal)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     bf16 = torch.bfloat16
-    _, (_, flops_bf16, _) = peaks(torch.cuda.get_device_name(0))
     B, S, H, P, N, L = 4, 1024, 128, 64, 16, 64
     args = ssd_inputs(B, S, H, P, N, bf16, gen, model=True)
     before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
@@ -1687,7 +1821,6 @@ def moe_kernel_checks():
                                    SSD_TOL[bf16]),
                   check_close(f"{case} h_final vs {plain}", h, want_h,
                               SSD_TOL[torch.float32]))
-    nc = -(-S // L)
     timing_row(
         "ssd_scan", "cuda", bf16, "tensor (mma.sync)",
         "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
@@ -1695,10 +1828,8 @@ def moe_kernel_checks():
         f"{JAMBA}: x ({B},{S},{H},{P}) B/C ({B},{S},{N}) bf16, chunk {L}",
         err, lambda: ops.ssd_scan(*args, chunk=L),
         lambda: ref.ssd_chunked(*args, chunk=L), None,
-        (2 * 2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * N
-         + 4 * B * H * P * N),
-        B * nc * 2 * L * L * N + B * H * nc * (2 * L * L * P + 4 * L * N * P),
-        flops_bf16, iters=10)
+        kernel_cost("ssd_scan", *(t.shape for t in args),
+                    dtype=bf16, chunk=L), iters=10)
     for rows, d in MOE_NORM_CASES:
         for dtype in (torch.float32, bf16):
             x = randn((rows, d), dtype, gen)
@@ -1717,8 +1848,8 @@ def moe_kernel_checks():
                     ref.rmsnorm_ref(x, w), NORM_TOL[bf16]),
         lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
         lambda: F.rms_norm(x, (8192,), w.to(bf16), 1e-6),
-        2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel(), flops_bf16,
-        iters=100)
+        kernel_cost("rmsnorm", x.shape, w.shape, dtype=bf16,
+                    w_dtype=w.dtype), iters=100)
     Hq, KH, hd = 32, 8, 128
     q, k, v = (randn((B, S, n, hd), bf16, gen) for n in (Hq, KH, KH))
     before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
@@ -1739,8 +1870,8 @@ def moe_kernel_checks():
         lambda: ref.attention_ref(q, k, v),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True),
-        2 * (2 * q.numel() + k.numel() + v.numel()),
-        4 * B * Hq * hd * (S * (S + 1) // 2), flops_bf16)
+        kernel_cost("flash_attention", q.shape, k.shape, v.shape,
+                    dtype=bf16))
 
 
 def routing(x, router, cfg):
@@ -2300,7 +2431,6 @@ def ring_hop_timing(gen):
     B, s, chunk = RING["hop_batch"], RING["hop_seq"], RING["chunk"]
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     bf16 = torch.bfloat16
-    _, (bw, flops_bf16, _) = peaks(torch.cuda.get_device_name(0))
     q, k, v = (randn((B, s, n, hd), bf16, gen).requires_grad_()
                for n in (H, KH, KH))
     g = randn((B, s, H, hd), bf16, gen)
@@ -2318,16 +2448,18 @@ def ring_hop_timing(gen):
     fwd_bwd_ms = event_ms(hop_fwd_bwd, RING["iters"])
     qd, kd, vd = (t.detach() for t in (q, k, v))
     flash_ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd))
-    stats = (2 * B * s * H + B * s * H * hd) * 4          # m, l, acc fp32
-    nbytes = 2 * (qd.numel() + kd.numel() + vd.numel()) + 2 * stats
-    work = 4 * B * H * hd * s * s
+    # the whole block's products (no block is skipped); the shards read
+    # once and the running stats m, l, acc (fp32) read and written
+    stats = (2 * B * s * H + B * s * H * hd) * 4
+    cost = {"bytes": 2 * (qd.numel() + kd.numel() + vd.numel()) + 2 * stats,
+            "flops": 4 * B * H * hd * s * s}
+    bound = card_bound(cost, bf16)
     out = {"shape": f"q ({B},{s},{H},{hd}) k/v ({B},{s},{KH},{hd}) bf16",
            "chunk": chunk, "forward_ms": fwd_ms,
            "forward_backward_ms": fwd_bwd_ms,
-           "flash_causal_ms": flash_ms, "bytes": nbytes, "flops": work,
-           "bound_ms": max(nbytes / bw, work / flops_bf16) * 1e3,
-           "bound_by": "bytes" if nbytes / bw >= work / flops_bf16
-           else "operations"}
+           "flash_causal_ms": flash_ms, "bytes": cost["bytes"],
+           "flops": cost["flops"], "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
     del q, k, v, g, qd, kd, vd
     gc.collect()
     torch.cuda.empty_cache()
@@ -3742,7 +3874,11 @@ def main():
         phase_decode_share(arch, smi)
     phase_backward(rows)
     by_path[f"train parity fp32 {GLM}"] = phase_train_parity()
-    by_path[f"train bf16 {GLM}"] = phase_train(smi)
+    cells = {}
+    for arch in (GLM, MAMBA):
+        by_path[f"train bf16 {arch}"], cells[f"train {arch}"] = \
+            phase_train(smi, arch)
+    phase_dryrun(smi, cells)
     phase_dist(smi)
     by_path.update(phase_region(smi))
     by_path.update(phase_hybrid(smi))

@@ -1,26 +1,33 @@
-"""Static analysis of the operator algebra (mirrors ``repro/analysis``;
-DESIGN §7).
+"""Static analysis of the operator algebra and of the port's traced
+programs (mirrors ``repro/analysis``; DESIGN §7).
 
 - ``spaces``: the static space type-checker: validates that a composite
   ``LinearOp`` is a well-typed map between the paper's global vector
   spaces (replicated F^n vs k-worker-stacked F^{kn}) before any
   communication, and is the move registry the port's adjoint fuzzer
   samples from.
+- ``hlo_lint``: the reference's anti-pattern rules over what torch can
+  observe in place of compiled HLO, the shape trace of one step
+  (``roofline/hlo_profile.py``): ``lint_trace`` returns ``Finding``
+  records.
 
-The reference's ``hlo_lint`` reads compiled XLA HLO, which torch does not
-produce; its rules wait for ROADMAP Queue 1 item 12.  Submodules load
-lazily, so ``python -m repro_torch.analysis.spaces`` runs without a
-double-import warning.
+Submodules load lazily, so ``python -m repro_torch.analysis.spaces`` and
+``python -m repro_torch.analysis.hlo_lint`` run without a double-import
+warning.
 """
 
-__all__ = ["spaces", "typecheck"]
+__all__ = ["spaces", "typecheck", "hlo_lint", "Finding", "lint_trace"]
+
+_FROM = {"typecheck": "spaces", "Finding": "hlo_lint",
+         "lint_trace": "hlo_lint"}
 
 
 def __getattr__(name):
-    """Resolve ``spaces`` and ``typecheck`` on first access."""
+    """Resolve the submodules and their names on first access."""
     import importlib
-    if name == "spaces":
-        return importlib.import_module(".spaces", __name__)
-    if name == "typecheck":
-        return importlib.import_module(".spaces", __name__).typecheck
+    if name in ("spaces", "hlo_lint"):
+        return importlib.import_module(f".{name}", __name__)
+    if name in _FROM:
+        return getattr(importlib.import_module(f".{_FROM[name]}", __name__),
+                       name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,9 +30,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from ..tree import tree_leaves, tree_map
+from . import primitives as prim
 
 __all__ = ["inner", "norm", "adjoint_test", "AdjointReport"]
 
@@ -56,7 +56,7 @@ def inner(a, b, groups=None) -> torch.Tensor:
     for la, lb in zip(leaves_a, leaves_b):
         total = total + torch.sum(la.double() * lb.double())
     for group in _groups(groups):
-        dist.all_reduce(total, group=group)
+        total = prim._all_reduce(total, prim.group_axis(group))
     return total
 
 

@@ -43,7 +43,15 @@ values and the global Eq. 13 results do not, and those are what the parity
 tests compare.
 
 Communication stays on the tensor's device: NCCL for CUDA tensors, gloo for
-host tensors (the mesh's backend follows its device, ``launch/mesh.py``).
+host tensors (the mesh's backend follows its device, ``launch/mesh.py``),
+and the fake backend for the dry run's ``meta`` tensors.
+
+Every collective of the port goes through the raw layer below (and
+``psum_``, ``pmax``, ``mesh_all_reduce_``), which records it in the
+active shape trace (``repro_torch/tracing.py``): kind, mesh axis, the
+group's global ranks, shapes, dim and output bytes.  That is the port's
+collective inventory; ``tools/lint_repro_torch.py`` keeps every raw
+``torch.distributed`` collective here or in ``launch/mesh.py``.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 from torch.autograd import Function
+
+from .. import tracing
 
 __all__ = [
     "use_mesh",
@@ -129,6 +139,14 @@ def _axis(name) -> _Axis:
     return _Axis(name, group, len(ranks), dist.get_rank(group), ranks)
 
 
+def group_axis(group, name: str = "group") -> _Axis:
+    """A process group (not a mesh axis) as an ``_Axis``, so a caller
+    holding only a group (``core/adjoint.py``) still goes through the raw
+    layer and its records."""
+    ranks = tuple(dist.get_process_group_ranks(group))
+    return _Axis(name, group, len(ranks), dist.get_rank(group), ranks)
+
+
 def axis_size(axis_name) -> int:
     """Size of mesh axis ``axis_name`` of the current mesh."""
     return _axis(axis_name).size
@@ -155,9 +173,15 @@ def _front(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.movedim(dim, 0).contiguous()
 
 
+def _record(kind: str, ax: _Axis, x, out, dim=None):
+    """One collective into the active shape trace; nothing without one."""
+    tracing.record_collective(kind, ax.name, ax.ranks, x, out, dim)
+
+
 def _all_reduce(x: torch.Tensor, ax: _Axis) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=ax.group)
+    _record("all-reduce", ax, x, out)
     return out
 
 
@@ -173,7 +197,9 @@ def _all_gather(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
     xt = _front(x, dim)
     out = xt.new_empty((ax.size * xt.shape[0],) + xt.shape[1:])
     dist.all_gather_into_tensor(out, xt, group=ax.group)
-    return _back(out, dim)
+    out = _back(out, dim)
+    _record("all-gather", ax, x, out, dim)
+    return out
 
 
 def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
@@ -184,7 +210,9 @@ def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
                          f"divisible by axis {ax.name!r} size {ax.size}")
     out = xt.new_empty((xt.shape[0] // ax.size,) + xt.shape[1:])
     _REDUCE_SCATTER(out, xt, group=ax.group)
-    return _back(out, dim)
+    out = _back(out, dim)
+    _record("reduce-scatter", ax, x, out, dim)
+    return out
 
 
 def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
@@ -198,7 +226,9 @@ def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
     send = torch.stack(x.chunk(ax.size, dim=split_dim)).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=ax.group)
-    return torch.cat(recv.unbind(0), dim=concat_dim)
+    out = torch.cat(recv.unbind(0), dim=concat_dim)
+    _record("all-to-all", ax, x, out, concat_dim)
+    return out
 
 
 def _shift(x: torch.Tensor, ax: _Axis, offset: int, cyclic: bool,
@@ -233,6 +263,8 @@ def _shift_many(items, ax: _Axis, cyclic: bool, tag: int = 0):
         if 0 <= src < ax.size:
             ops.append(dist.P2POp(dist.irecv, out, ax.peer(src), ax.group,
                                   tag + j))
+        if 0 <= dst < ax.size or 0 <= src < ax.size:
+            _record("collective-permute", ax, x, out)
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -260,6 +292,7 @@ def ring_hop_start(x: torch.Tensor, ax: _Axis, offset: int = 1):
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, x, ax.peer(dst), ax.group),
         dist.P2POp(dist.irecv, out, ax.peer(src), ax.group)])
+    _record("collective-permute", ax, x, out)
     return out, reqs
 
 
@@ -281,6 +314,7 @@ def psum_(tensors, axes):
         if ax.size > 1:
             for t in tensors:
                 dist.all_reduce(t, group=ax.group)
+                _record("all-reduce", ax, t, t)
     return tensors
 
 
@@ -296,6 +330,7 @@ def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     if ax.size > 1:
         dist.all_reduce(out, op=_REDUCE_OPS["max"], group=ax.group)
+        _record("all-reduce", ax, x, out)
     return out
 
 
@@ -317,6 +352,8 @@ def mesh_all_reduce_(x: torch.Tensor, op: str = "sum", *,
                          f"{name} (build it with launch.mesh's "
                          f"make_pipeline_mesh or make_hybrid_mesh)")
     dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
+    if tracing.active() is not None:
+        _record("all-reduce", group_axis(group, name), x, x)
     return x
 
 

@@ -46,10 +46,12 @@ _ARGS_TC = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
-def check_inputs(q, k, v):
-    """Raise ``ValueError`` for anything the kernel does not take."""
+def check_inputs(q, k, v, *, device="cuda"):
+    """Raise ``ValueError`` for anything the kernel does not take.
+    ``device="meta"`` applies the same checks to shape stand-ins (the dry
+    run's route in ``ops.py``)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if t.device.type != device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              f"the kernel needs a CUDA tensor")
         if t.device != q.device:

@@ -10,6 +10,15 @@ went through the kernels, and ``ROUTE_LAUNCHES`` counts the launches of
 flash attention and the SSD scan by route: ``tensor_core`` for bf16,
 ``cuda_core`` for fp32.
 
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the shape
+route: the same checks as the card's wrapper, which raise where it
+raises, then empty ``meta`` outputs of the kernel's shapes.  This is shape
+evaluation, not a fallback: a meta tensor holds no data, nothing is
+launched or counted in ``LAUNCHES``, and the plain version is not called.
+Each kernel call on ``meta`` or on the card is recorded, with its
+``cost.kernel_cost``, in the active shape trace (``repro_torch/tracing.py``;
+the trace is ``roofline/hlo_profile.py``'s), if there is one.
+
 Backward: when an input requires grad under grad mode, the call goes
 through a ``torch.autograd.Function`` whose forward is the dispatch above
 and saves only its inputs, and whose backward recomputes through the
@@ -27,9 +36,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import flash_attention as _flash
 from . import ref
 from . import ssd_scan as _ssd
+from .rmsnorm import check_inputs as _rmsnorm_check
+from .cost import kernel_cost
 from .rmsnorm import rmsnorm_fwd
 
 LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
@@ -44,6 +56,15 @@ def reset_launches():
     for routes in ROUTE_LAUNCHES.values():
         for route in routes:
             routes[route] = 0
+
+
+def _record(name, route, ins, outs, **kw):
+    """The call into the active shape trace, with its cost."""
+    if tracing.active() is not None:
+        tracing.record_kernel(
+            name, route, ins, outs,
+            kernel_cost(name, *(t.shape for t in ins), dtype=ins[0].dtype,
+                        **kw))
 
 
 def _needs_grad(*tensors) -> bool:
@@ -71,9 +92,15 @@ def _recompute_grads(ctx, plain, outputs_grad, **kwargs):
 def _flash_fwd(q, k, v, causal):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    out = _flash.flash_attention_fwd(q, k, v, causal=causal)
-    LAUNCHES["flash_attention"] += 1
-    ROUTE_LAUNCHES["flash_attention"][_flash.ROUTES[q.dtype]] += 1
+    if q.device.type == "meta":
+        _flash.check_inputs(q, k, v, device="meta")
+        out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+    else:
+        out = _flash.flash_attention_fwd(q, k, v, causal=causal)
+        LAUNCHES["flash_attention"] += 1
+        ROUTE_LAUNCHES["flash_attention"][_flash.ROUTES[q.dtype]] += 1
+    _record("flash_attention", _flash.ROUTES[q.dtype], (q, k, v), (out,),
+            causal=causal)
     return out
 
 
@@ -108,8 +135,13 @@ def flash_attention(q, k, v, causal=True):
 def _rmsnorm_fwd(x, w, eps):
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
-    out = rmsnorm_fwd(x, w, eps=eps)
-    LAUNCHES["rmsnorm"] += 1
+    if x.device.type == "meta":
+        _rmsnorm_check(x, w, device="meta")
+        out = torch.empty_like(x)
+    else:
+        out = rmsnorm_fwd(x, w, eps=eps)
+        LAUNCHES["rmsnorm"] += 1
+    _record("rmsnorm", "triton", (x, w), (out,), w_dtype=w.dtype)
     return out
 
 
@@ -142,9 +174,18 @@ def rmsnorm(x, w, eps=1e-6):
 def _ssd_fwd(x, dt, a_neg, Bm, Cm, chunk):
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, a_neg, Bm, Cm, chunk=chunk)
-    out = _ssd.ssd_scan_fwd(x, dt, a_neg, Bm, Cm, chunk=chunk)
-    LAUNCHES["ssd_scan"] += 1
-    ROUTE_LAUNCHES["ssd_scan"][_ssd.ROUTES[x.dtype]] += 1
+    if x.device.type == "meta":
+        _ssd.check_inputs(x, dt, a_neg, Bm, Cm, chunk, device="meta")
+        B, S, H, P = x.shape
+        out = (torch.empty((B, S, H, P), dtype=x.dtype, device="meta"),
+               torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32,
+                           device="meta"))
+    else:
+        out = _ssd.ssd_scan_fwd(x, dt, a_neg, Bm, Cm, chunk=chunk)
+        LAUNCHES["ssd_scan"] += 1
+        ROUTE_LAUNCHES["ssd_scan"][_ssd.ROUTES[x.dtype]] += 1
+    _record("ssd_scan", _ssd.ROUTES[x.dtype], (x, dt, a_neg, Bm, Cm), out,
+            chunk=chunk)
     return out
 
 

@@ -53,9 +53,11 @@ def _compiled():
     return _jit
 
 
-def check_inputs(x, w):
-    """Raise ``ValueError`` for anything the kernel does not take."""
-    if x.device.type != "cuda" or w.device != x.device:
+def check_inputs(x, w, *, device="cuda"):
+    """Raise ``ValueError`` for anything the kernel does not take.
+    ``device="meta"`` applies the same checks to shape stand-ins (the dry
+    run's route in ``ops.py``)."""
+    if x.device.type != device or w.device != x.device:
         raise ValueError(f"rmsnorm: x on {x.device}, w on {w.device}; the "
                          f"kernel needs both on one CUDA device")
     if x.dtype not in DTYPES or w.dtype not in DTYPES:

@@ -59,11 +59,13 @@ def tile_for(chunk: int) -> int:
     return next((t for t in TILES if t >= chunk), 0)
 
 
-def check_inputs(x, dt, a_neg, Bm, Cm, chunk):
-    """Raise ``ValueError`` for anything the kernel does not take."""
+def check_inputs(x, dt, a_neg, Bm, Cm, chunk, *, device="cuda"):
+    """Raise ``ValueError`` for anything the kernel does not take.
+    ``device="meta"`` applies the same checks to shape stand-ins (the dry
+    run's route in ``ops.py``)."""
     for name, t in (("x", x), ("dt", dt), ("a_neg", a_neg), ("Bm", Bm),
                     ("Cm", Cm)):
-        if t.device.type != "cuda":
+        if t.device.type != device:
             raise ValueError(f"ssd_scan: {name} is on {t.device}, the kernel "
                              f"needs a CUDA tensor")
         if t.device != x.device:

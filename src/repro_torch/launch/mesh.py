@@ -10,7 +10,10 @@ dispatch does (``kernels/ops.py``): a ``cuda`` mesh (the default, through
 ``device.resolve_device``) runs NCCL with one rank per card, and a world
 larger than ``torch.cuda.device_count()`` raises: NCCL refuses two ranks on
 one card, and nothing here moves CUDA tensors to gloo or to the host.  A
-``cpu`` mesh runs gloo.
+``cpu`` mesh runs gloo.  A ``meta`` mesh runs torch's fake backend
+(``init_fake_world``): one host process stands in for rank r of a world of
+any size, its collectives return at once on shape stand-ins, and nothing
+is allocated (the dry run, ``launch/dryrun.py``).
 
 Builders are FUNCTIONS, not module constants, and every rank of the world
 calls each one in the same order (creating a process group is collective).
@@ -55,7 +58,7 @@ from ..core import primitives as prim
 from ..device import resolve_device
 from ..tree import tree_map
 
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "cpu:fake,meta:fake"}
 _TIMEOUT: list = []   # the world's process-group timeout, set by init_world
 _WORLD: dict = {}     # the first world's store and this process's card
 
@@ -112,6 +115,23 @@ def _join(store, rank: int, world: int, device_type: str, timeout):
     dist.init_process_group(BACKENDS[device_type], store=store,
                             world_size=world, rank=rank, timeout=timeout,
                             **kw)
+    _TIMEOUT[:] = [timeout]
+
+
+def init_fake_world(rank: int, world: int):
+    """Join this process to a fake world of ``world`` ranks as ``rank``:
+    torch's fake process group (``torch.testing._internal.distributed.
+    fake_pg``) on the host and ``meta`` devices, over an in-process store.
+    Every collective, ``batch_isend_irecv`` included, returns at once
+    without moving data, so one process traces rank ``rank``'s program of
+    a mesh of any size on ``meta`` tensors.  ``dist.destroy_process_group``
+    leaves it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    timeout = datetime.timedelta(seconds=300)
+    _WORLD.clear()
+    _WORLD.update(store=None, card=rank, generation=0)
+    dist.init_process_group(BACKENDS["meta"], store=FakeStore(), rank=rank,
+                            world_size=world, timeout=timeout)
     _TIMEOUT[:] = [timeout]
 
 
@@ -202,7 +222,7 @@ def _make_mesh(shape, axes, devices=None, *, device=None,
     # small all-reduce on each of this rank's groups comes first instead.
     probe = torch.zeros(1, device=(torch.device("cuda",
                                                 torch.cuda.current_device())
-                                   if device_type == "cuda" else "cpu"))
+                                   if device_type == "cuda" else device_type))
     for group in groups + [flat] * (flat is not None):
         dist.all_reduce(probe, group=group)
     mesh = DeviceMesh.from_group(groups, device_type,

@@ -150,12 +150,26 @@ def parse_hybrid(spec: str) -> tuple:
 
 def check_hybrid(cfg, hybrid, seq: int | None = None):
     """Refuse what the hybrid path cannot run: a sequence the ctx axis does
-    not divide, and SSM mixers under CP > 1 (the reference scans each
-    sequence shard from zero state, which is not the global scan); a
-    tied-embedding arch raises as the pipeline cut does."""
+    not divide, SSM mixers under CP > 1 (the reference scans each
+    sequence shard from zero state, which is not the global scan), and
+    under explicit TP (TP > 1) a width the model axis splits and does not
+    divide (the stage body cuts d_model, the query and K/V heads and d_ff
+    over it); a tied-embedding arch raises as the pipeline cut does."""
     dp, pp, cp, tp, ep = hybrid
     if seq is not None and seq % cp:
         raise SystemExit(f"--seq {seq} not divisible by CP={cp}")
+    kinds = {(cfg.mixer_kind(i), cfg.ffn_kind(i))
+             for i in range(cfg.block_period)}
+    widths = {"d_model": cfg.d_model}
+    if any(m == "attn" for m, _ in kinds):
+        widths.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+    if any(f == "mlp" for _, f in kinds):
+        widths["d_ff"] = cfg.d_ff
+    bad = {k: v for k, v in widths.items() if v % tp}
+    if bad:
+        raise SystemExit(
+            f"--hybrid-mesh TP={tp}: explicit TP splits {sorted(widths)} of "
+            f"{cfg.name} over the model axis; {bad} not divisible by {tp}")
     ssm = sorted({cfg.mixer_kind(i) for i in range(cfg.block_period)}
                  - {"attn"})
     if cp > 1 and ssm:

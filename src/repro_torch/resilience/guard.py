@@ -24,6 +24,7 @@ outside the step (``train/loop.py::run``): that rank's flag is
 - :func:`nonfinite_count`: count of non-finite values in a tree.
 - :func:`nonfinite_flag`: its one-bit form.
 - :func:`combine_flags`: the max of several flags.
+- :func:`host_flag`: the host's reading of a flag.
 - :func:`tree_where`: leafwise ``where(ok, new, old)``, a select, never an
   arithmetic blend (``0 * nan`` would leak the NaN).
 - :func:`apply_guard`: the next train state from the flag.
@@ -36,7 +37,7 @@ import torch
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["HOST_FAULT", "nonfinite_count", "nonfinite_flag", "combine_flags",
-           "tree_where", "apply_guard"]
+           "host_flag", "tree_where", "apply_guard"]
 
 
 HOST_FAULT = 2   # a rank's flag when it holds a fault from outside the step
@@ -68,6 +69,16 @@ def combine_flags(*flags):
     return out
 
 
+def host_flag(flag) -> int:
+    """The host's reading of a flag: its value as an int.  A ``meta``
+    flag (the dry run traces shapes, so the flag holds no value) reads as
+    0, a clean step: the branch that runs the update, whose memory and
+    work a step pays."""
+    if isinstance(flag, torch.Tensor) and flag.device.type == "meta":
+        return 0
+    return int(flag)
+
+
 def tree_where(ok, new_tree, old_tree):
     """Leafwise ``where(ok, new, old)``, the pass-through update; ``ok`` is
     a scalar predicate (bool or 0-d tensor).  Select semantics: the rejected
@@ -86,7 +97,7 @@ def apply_guard(flag, state, new_params, new_opt):
     state's own tensors (the caller did not run the update); ``step``
     advances and ``skipped_steps`` increments.  States made before the
     counter existed default it to 0."""
-    skip = bool(flag)
+    skip = bool(host_flag(flag))
     return {
         "params": state["params"] if skip else new_params,
         "opt": state["opt"] if skip else new_opt,

@@ -37,7 +37,8 @@ from repro_torch.models import forward
 from repro_torch.models.model import DTYPES
 from repro_torch.optim.optimizers import global_norm
 from repro_torch.resilience.guard import (HOST_FAULT, apply_guard,
-                                          combine_flags, nonfinite_flag)
+                                          combine_flags, host_flag,
+                                          nonfinite_flag)
 from repro_torch.sharding import Partitioned
 
 
@@ -134,7 +135,7 @@ def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
                             max=1.0)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         if nonfinite_guard:
-            flag = int(nonfinite_flag((loss, grads)))   # the host decides
+            flag = host_flag(nonfinite_flag((loss, grads)))  # the host decides
             new_params, new_opt = params, state["opt"]
             if not flag:
                 new_params, new_opt = optimizer.update(
@@ -344,7 +345,7 @@ def build_hybrid_train_step(cfg, policy, optimizer, *,
                    "bubble_fraction": bubble}
         if nonfinite_guard:
             # agreed over the mesh by the executor: the same on every rank
-            flag = int(combine_flags(*(o[2] for o in outs)))
+            flag = host_flag(combine_flags(*(o[2] for o in outs)))
             new_params, new_opt = params, state["opt"]
             if not flag:
                 new_params, new_opt = optimizer.update(

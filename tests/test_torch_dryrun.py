@@ -1,0 +1,102 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), all on ``meta``
+tensors: one host process as one rank of a fake world.
+
+Covers: the sharded decode at (data, model) = (1, 4) on a fake world of 4,
+at full width, records the collective counts the card's profiler counted
+(PERF.md §5: 1057 a step for mistral-large-123b's 88 layers, 257 for
+jamba-v0.1-52b's 32), each one a c10d op; glm4-9b ``decode_32k`` lowers on
+the fake 16 x 16 world through the CLI and writes every key of the
+reference's result plus ``program``, ``fits`` and ``source``; a cell the
+port refuses is written with its message; the kernels' meta route refuses
+what the card refuses (bf16 flash at head dim 8) and launches nothing;
+the guard reads a meta flag as a clean step.
+"""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.resilience.guard import apply_guard, host_flag
+from repro_torch.sharding import Policy
+
+REFERENCE_KEYS = {"arch", "shape", "mesh", "chips", "params_B",
+                  "active_params_B", "memory", "collectives", "roofline"}
+MEMORY_KEYS = {"argument_GiB", "output_GiB", "temp_GiB", "alias_GiB",
+               "peak_per_device_GiB"}
+
+
+@pytest.mark.parametrize("arch, count", [("mistral-large-123b", 1057),
+                                         ("jamba-v0.1-52b", 257)])
+def test_sharded_decode_records_the_cards_collective_count(arch, count):
+    launch_mesh.init_fake_world(0, 4)
+    try:
+        mesh = launch_mesh.make_host_mesh((1, 4), device="meta")
+        tr = dryrun.trace_serve(get_config(arch), batch=4, prompt_len=1024,
+                                policy=Policy.for_mesh(mesh), kind="decode")
+    finally:
+        dist.destroy_process_group()
+    coll = [r for r in tr.records if r.kind == "collective"]
+    assert len(coll) == count
+    assert sum(tr.c10d.values()) == count   # each one c10d op, as profiled
+    assert {r.ranks for r in coll} == {(0, 1, 2, 3)}
+
+
+def test_glm4_decode_32k_writes_every_key(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    dryrun.main(["--arch", "glm4-9b", "--shape", "decode_32k"])
+    res = json.loads((tmp_path / "16x16" / "glm4-9b__decode_32k.json")
+                     .read_text())
+    assert REFERENCE_KEYS | {"program", "fits", "source", "trace_s"} <= \
+        set(res)
+    assert set(res["memory"]) == MEMORY_KEYS
+    assert res["chips"] == 256 and res["refused"] is None
+    assert res["fits"] is True and res["memory"]["peak_per_device_GiB"] > 0
+    assert res["source"].endswith("not measured")
+    assert res["collectives"]["counts"]["all-reduce"] > 0
+    assert res["collectives"]["c10d_ops"] == \
+        sum(res["collectives"]["counts"].values())
+    assert res["roofline"]["t_memory_s"] > 0
+    assert not dist.is_initialized()
+
+
+def test_a_refused_cell_is_written_with_the_ports_message():
+    res = dryrun.lower_cell("mamba2-370m", "train_4k", verbose=False)
+    assert res["refused"].startswith("NotImplementedError: pipeline cut")
+    assert REFERENCE_KEYS | {"program", "fits", "source"} <= set(res)
+    assert res["roofline"] is None and not dist.is_initialized()
+
+
+def test_meta_route_refuses_what_the_card_refuses():
+    q = torch.empty(1, 64, 4, 8, dtype=torch.bfloat16, device="meta")
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="head dim 8 not in") as meta:
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError) as card:
+        flash.check_inputs(q, q, q, device="meta")
+    assert str(meta.value) == str(card.value)
+    q = torch.empty(1, 64, 4, 64, dtype=torch.bfloat16, device="meta")
+    assert ops.flash_attention(q, q, q).device.type == "meta"
+    assert ops.LAUNCHES == before
+
+
+def test_a_meta_flag_passes_the_guard_as_a_clean_step():
+    flag = torch.ones((), dtype=torch.int32, device="meta")
+    assert host_flag(flag) == 0 and host_flag(torch.tensor(1)) == 1
+    state = {"params": "old", "opt": "old-moments", "step": 3,
+             "skipped_steps": 1}
+    assert apply_guard(flag, state, "new", "new-moments") == {
+        "params": "new", "opt": "new-moments", "step": 4,
+        "skipped_steps": 1}
+    cfg = dataclasses.replace(reduced(get_config("glm4-9b")),
+                              dtype="bfloat16")
+    tr = dryrun.trace_train(cfg, batch=2, seq=32)
+    assert {r.op for r in tr.records if r.kind == "kernel"} == \
+        {"flash_attention", "rmsnorm"}

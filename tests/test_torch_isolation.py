@@ -33,7 +33,11 @@ for name in ("repro_torch.sharding.policy", "repro_torch.core.compile",
              "repro_torch.analysis.spaces",
              "repro_torch.core.ring_attention",
              "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-             "repro_torch.resilience.inject"):
+             "repro_torch.resilience.inject",
+             "repro_torch.analysis.hlo_lint", "repro_torch.launch.dryrun",
+             "repro_torch.roofline.analysis",
+             "repro_torch.roofline.hlo_profile",
+             "repro_torch.roofline.report"):
     assert name in names, name
 assert len(names) > 20, names
 bad = sorted(m for m in sys.modules

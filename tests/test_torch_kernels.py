@@ -121,21 +121,49 @@ def test_ops_on_host_tensors_take_plain_versions():
                             "ssd_scan": 0}
 
 
-def test_ops_off_host_reach_the_kernel_wrappers():
+def _no_plain(monkeypatch):
+    """Make every plain forward raise: an off-host call must not reach it."""
+    def refuse(*a, **k):
+        raise AssertionError("an off-host tensor reached the plain version")
+    for name in ("attention_ref", "rmsnorm_ref", "ssd_chunked"):
+        monkeypatch.setattr(ref, name, refuse)
+
+
+def test_ops_off_host_reach_the_kernel_wrappers(monkeypatch):
     """A tensor that is not on the host never falls back to the plain
-    version: it reaches the kernel wrapper, which refuses a non-CUDA device."""
+    version: it reaches the kernel wrapper's checks.  The wrapper refuses a
+    non-CUDA device; a ``meta`` tensor (the dry run) takes the same checks
+    through ``ops``' shape route, which refuses what the card refuses,
+    returns empty outputs of the kernel's shapes and launches nothing."""
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    _no_plain(monkeypatch)
+    ops.reset_launches()
     q = torch.empty((1, 64, 4, 32), device="meta")
     k = torch.empty((1, 64, 2, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention(q, k, k)
+        flash_attention.check_inputs(q, k, k)
+    assert ops.flash_attention(q, k, k).shape == q.shape
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.flash_attention(q[..., :8], k[..., :8], k[..., :8])
+    x, w = torch.empty((3, 64), device="meta"), torch.empty((64,),
+                                                             device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ops.rmsnorm(torch.empty((3, 64), device="meta"),
-                    torch.empty((64,), device="meta"))
-    x = torch.empty((1, 64, 2, 16), device="meta")
+        rmsnorm.check_inputs(x, w)
+    assert ops.rmsnorm(x, w).shape == x.shape
+    with pytest.raises(ValueError, match="do not match"):
+        ops.rmsnorm(x, w[:32])
+    xs = torch.empty((1, 64, 2, 16), device="meta")
     bm = torch.empty((1, 64, 16), device="meta")
+    dt, a = torch.empty((1, 64, 2), device="meta"), torch.empty(
+        (2,), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssd_scan(x, torch.empty((1, 64, 2), device="meta"),
-                     torch.empty((2,), device="meta"), bm, bm)
+        ssd_scan.check_inputs(xs, dt, a, bm, bm, 64)
+    y, h = ops.ssd_scan(xs, dt, a, bm, bm)
+    assert (y.shape, h.shape) == (xs.shape, (1, 2, 16, 16))
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.ssd_scan(xs[..., :8], dt, a, bm, bm)
+    assert ops.LAUNCHES == {"flash_attention": 0, "rmsnorm": 0,
+                            "ssd_scan": 0}
 
 
 def _meta(*shape, grad=False):
@@ -143,25 +171,39 @@ def _meta(*shape, grad=False):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "rmsnorm", "ssd_scan"])
-def test_ops_off_host_with_grad_reach_the_kernel_wrappers(kernel):
+def test_ops_off_host_with_grad_reach_the_kernel_wrappers(kernel,
+                                                          monkeypatch):
     """A tensor off the host that requires grad goes through the kernel's
-    autograd Function to the kernel wrapper (which refuses a non-CUDA
-    device), under grad mode and under no_grad alike: never to the plain
-    forward."""
+    autograd Function to the kernel wrapper's checks, under grad mode and
+    under no_grad alike: never to the plain forward.  On ``meta`` the
+    checks refuse a head dim the kernel does not take, and a valid call's
+    output carries the Function's backward under grad mode only."""
+    _no_plain(monkeypatch)
     args = {
-        "flash_attention": lambda g: (_meta(1, 64, 4, 32, grad=g),
-                                      _meta(1, 64, 2, 32), _meta(1, 64, 2, 32)),
-        "rmsnorm": lambda g: (_meta(3, 64), _meta(64, grad=g)),
-        "ssd_scan": lambda g: (_meta(1, 64, 2, 16, grad=g), _meta(1, 64, 2),
-                               _meta(2), _meta(1, 64, 16), _meta(1, 64, 16)),
+        "flash_attention": lambda g, d: (_meta(1, 64, 4, d, grad=g),
+                                         _meta(1, 64, 2, d),
+                                         _meta(1, 64, 2, d)),
+        "rmsnorm": lambda g, d: (_meta(3, d), _meta(d if d != 8 else 9,
+                                                    grad=g)),
+        "ssd_scan": lambda g, d: (_meta(1, 64, 2, d, grad=g),
+                                  _meta(1, 64, 2), _meta(2),
+                                  _meta(1, 64, 16), _meta(1, 64, 16)),
     }[kernel]
     fn = getattr(ops, kernel)
-    with pytest.raises(ValueError, match="CUDA"):
-        fn(*args(True))
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        fn(*args(True))
-    with pytest.raises(ValueError, match="CUDA"):
-        fn(*args(False))
+    function = {"flash_attention": "FlashAttention", "rmsnorm": "RMSNorm",
+                "ssd_scan": "SSDScan"}[kernel]
+    with pytest.raises(ValueError):
+        fn(*args(True, 8))
+    with torch.no_grad(), pytest.raises(ValueError):
+        fn(*args(True, 8))
+    with pytest.raises(ValueError):
+        fn(*args(False, 8))
+    out = fn(*args(True, 16))
+    out = out[0] if isinstance(out, tuple) else out
+    assert type(out.grad_fn).__name__ == f"{function}Backward"
+    with torch.no_grad():
+        out = fn(*args(True, 16))
+    assert (out[0] if isinstance(out, tuple) else out).grad_fn is None
 
 
 def _grad_case(kernel, rng):

@@ -12,7 +12,8 @@ trained, also with its sequence over a ctx axis (ring attention), and
 through checkpoints, injected faults and a mesh shrink; mamba2-370m is
 trained at all 48 layers; and the dry run's predictions (kernel calls,
 peak memory, bound time, traced on ``meta``) are held against three of
-those cells.
+those cells; glm4-9b is also trained by the reference's production step
+(ZeRO-3 over data, TP/SP over model) at mesh (1, 1).
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -246,6 +247,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``max_memory_allocated()`` above its baseline, and the roofline's bound
    time beside the measured time as a share (no pass or fail).  One
    ``dryrun_vs_card`` line a cell.
+19. zero3: the policy train program (``build_train_step(cfg, opt,
+   policy=Policy(mesh))``: ZeRO-3 over data, tensor and sequence
+   parallelism over model, remat per superblock) spawned as one NCCL
+   rank at mesh (1, 1): glm4-9b at full width cut to 2 layers in fp32,
+   its loss and every gradient leaf within 1e-6 of scale of
+   ``build_train_step`` without a policy; then 5 bf16 steps of 8 layers
+   (B 4, S 1024) through ``launch.train.train(..., mesh=(1, 1))``, the
+   launch counts exact (2L flash, 4L + 1 RMSNorm a step: the remat
+   forward runs again in the backward), and one more step split by CUDA
+   events, its peak memory and collectives.  Where four cards exist
+   (``tools/zero3_phase_torch.py --four-card-meshes``, ``zero3_meshes``):
+   glm4-9b at all 40 layers from the per-rank initialiser at (4, 1) and
+   (2, 2), B 8, S 1024, 5 steps, the 2-layer fp32 parity at (2, 2), each
+   mesh's peak within 2% of ``launch.dryrun.mesh_cell``'s prediction.
+   One line ``{"zero3": {...}}`` (``{"zero3_mesh": ...}`` a 4-card mesh).
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -280,9 +296,11 @@ import lenet5_distributed_torch as lenet_example  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
                                  reduced)
+from repro_torch.core import linop  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core.compile import region  # noqa: E402
 from repro_torch.core import ring_attention as ring  # noqa: E402
@@ -304,7 +322,9 @@ from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
 from repro_torch.models.common import (mlp_apply, rmsnorm,  # noqa: E402
                                        subtree)
-from repro_torch.models.model import DTYPES  # noqa: E402
+from repro_torch.models.model import (DTYPES,  # noqa: E402
+                                      shard_train_params,
+                                      train_param_specs)
 from repro_torch.models.ssm import ssm_block  # noqa: E402
 from repro_torch.optim import global_norm, make_optimizer  # noqa: E402
 from repro_torch.resilience import nonfinite_flag  # noqa: E402
@@ -3862,6 +3882,304 @@ def serve_meshes(smi, cells=tuple(SERVE_MESH_CELLS)):
             "seconds": time.perf_counter() - t0, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the policy train program (ZeRO-3 over data, tensor and sequence
+# parallelism over model), glm4-9b.
+# ---------------------------------------------------------------------------
+
+# (a) one card at mesh (1, 1): the 2-layer fp32 parity against the step
+# without a policy, then 5 bf16 steps of 8 layers from init_params' cut
+ZERO3 = {"parity_layers": 2, "parity_batch": 2, "parity_seq": 256,
+         "layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3,
+         "rank_init": False}
+ZERO3_ONE_TOL = 1e-6      # (1, 1) against build_train_step with no policy
+# (b) four cards: all 40 layers from the per-rank initialiser
+ZERO3_FULL = {"layers": 40, "batch": 8, "seq": 1024, "steps": 5, "lr": 1e-3,
+              "rank_init": True}
+ZERO3_MESHES = {"dp4": ((4, 1), False), "dp2_tp2": ((2, 2), True)}
+ZERO3_PEAK_TOL = 0.02     # the card's peak within 2% of the dry run's
+CARD_BYTES = 80e9
+
+
+class CollectiveTally:
+    """A stand-in shape trace (``repro_torch.tracing``) that only counts the
+    primitives' collectives and their output bytes by kind while it is
+    active: the card's count of what the dry run predicts."""
+
+    def __init__(self):
+        self.counts, self.bytes = {}, {}
+
+    def add(self, kind, op, ins, outs, **kw):
+        if kind == "collective":
+            self.counts[op] = self.counts.get(op, 0) + 1
+            self.bytes[op] = self.bytes.get(op, 0) + kw["out_bytes"]
+
+    def __enter__(self):
+        tracing.TRACES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        tracing.TRACES.remove(self)
+
+
+class PhaseEvents:
+    """``build_train_step``'s ``phase_hook``: a CUDA event as each part of
+    the step starts; ``split()`` after a closing ``self("end")``."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, kind):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((kind, ev))
+
+    def split(self) -> dict:
+        self.marks[-1][1].synchronize()
+        out = {}
+        for (kind, a), (_, b) in zip(self.marks, self.marks[1:]):
+            out[f"{kind}_ms"] = out.get(f"{kind}_ms", 0.0) + a.elapsed_time(b)
+        return out
+
+
+def zero3_launches(cfg, steps):
+    """A step of the policy train program under remat: each superblock's
+    forward runs again in the backward, so 2L flash and 2L + 2L + 1 norms
+    (the final norm is outside the checkpoint)."""
+    L = cfg.num_layers
+    return {"flash_attention": 2 * L * steps, "rmsnorm": (4 * L + 1) * steps,
+            "ssd_scan": 0}
+
+
+def zero3_parity(policy, tol):
+    """glm4-9b at full width cut to 2 layers, fp32: the policy step's loss
+    and every gradient leaf (gathered from the blocks) against
+    ``loss_and_grads`` of the loss without a policy on the same
+    parameters (``init_params`` on this card, the same on every rank).
+    Returns the errors' shares of each leaf's scale and the launches."""
+    cfg = dataclasses.replace(get_config(GLM),
+                              num_layers=ZERO3["parity_layers"],
+                              dtype="float32")
+    B, S = ZERO3["parity_batch"], ZERO3["parity_seq"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         "cuda")
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=0)).batch(0)
+    opt = make_optimizer(cfg.optimizer, total_steps=5, base_lr=1e-3)
+    loss1, _, want = loss_and_grads(build_loss_fn(cfg), params,
+                                    batch_to_device(batch, "cuda"))
+    got = {}
+
+    def capture(g):
+        if not got:
+            got.update(g)
+        return g
+
+    ops.reset_launches()
+    state = init_train_state(cfg, shard_train_params(cfg, params, policy),
+                             opt)
+    del params
+    _, met = build_train_step(cfg, opt, policy=policy,
+                              fault_hook=capture)(state, batch)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    specs = train_param_specs(cfg, policy)
+    shares = {}
+    with torch.no_grad():
+        for k in sorted(want):
+            full = linop.assemble(got.pop(k), specs[k], policy.mesh).float()
+            ref_k = want.pop(k).float()
+            shares[k] = float((full - ref_k).abs().max()
+                              / ref_k.abs().max().clamp(min=1e-30))
+    loss_share = abs(float(met["loss"]) - float(loss1)) / abs(float(loss1))
+    out = {"layers": cfg.num_layers, "batch": B, "seq": S, "tol": tol,
+           "loss": float(met["loss"]), "loss_one_device": float(loss1),
+           "loss_share": loss_share, "max_grad_share": max(shares.values()),
+           "grad_shares": shares, "launches": snap}
+    if loss_share > tol or max(shares.values()) > tol:
+        raise AssertionError(f"zero3 parity at {tuple(policy.mesh.shape)}: "
+                             f"loss {loss_share}, grads "
+                             f"{max(shares.items(), key=lambda kv: kv[1])}")
+    return out
+
+
+def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
+    """Phase 19 on this rank of the (data, model) ``mesh_shape``: the fp32
+    parity (``parity``), then ``run``'s bf16 steps through
+    ``launch.train.train(..., mesh=)`` with the launch counts, and one
+    more step split by CUDA events, its collectives tallied and its peak
+    memory read."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = launch_mesh.make_host_mesh(mesh_shape, device="cuda",
+                                   all_ranks_group=True)
+    policy = Policy(m)
+    out = {"rank": rank,
+           "coordinate": dict(zip(policy.axis_names, m.get_coordinate()))}
+    t0 = time.perf_counter()
+    if parity:
+        out["parity"] = zero3_parity(policy, parity_tol)
+    out["parity_seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(GLM), num_layers=run["layers"])
+    B, S, steps = run["batch"], run["seq"], run["steps"]
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = launch_train.train(
+        cfg, steps=steps, batch=B, seq=S, lr=run["lr"], seed=0,
+        device="cuda", mesh=mesh_shape, rank_init=run["rank_init"],
+        logger=logs.append)
+    torch.cuda.synchronize()
+    snap = snapshot()
+    train_s = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    secs = sorted(rec["sec"] for rec in hist[1:])
+    median_s = (secs[(len(secs) - 1) // 2] + secs[len(secs) // 2]) / 2
+    leaves = list(state["params"].values()) + [
+        t for part in ("m", "v") for t in state["opt"][part].values()]
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    opt = make_optimizer(cfg.optimizer, total_steps=steps, base_lr=run["lr"])
+    timer = PhaseEvents()
+    step = build_train_step(cfg, opt, policy=policy, phase_hook=timer)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=0)).batch(steps)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with CollectiveTally() as tally:
+        _, met = step(state, batch)
+        timer("end")
+    split = timer.split()
+    torch.cuda.synchronize()
+    out["train"] = {
+        "arch": GLM, "layers": cfg.num_layers,
+        "cut": ("none" if cfg.num_layers == 40
+                else f"depth 40 -> {cfg.num_layers}"),
+        "dtype": cfg.dtype, "mesh": list(mesh_shape), "batch": B, "seq": S,
+        "steps": steps, "rank_init": run["rank_init"],
+        "params_on_rank": sum(p.numel() for p in state["params"].values()),
+        "state_bytes_on_rank": state_bytes,
+        "losses": [rec["loss"] for rec in hist],
+        "grad_norms": [rec["grad_norm"] for rec in hist],
+        "skipped": [rec["skipped"] for rec in hist],
+        "step_ms": [rec["sec"] * 1e3 for rec in hist],
+        "median_step_ms_2_5": median_s * 1e3,
+        "tokens_per_s": B * S / median_s, "peak_mem_bytes_run": peak_run,
+        "launches": snap, "seconds": train_s, "log": logs,
+        "split": split, "split_step_loss": float(met["loss"]),
+        "split_step_peak_bytes": torch.cuda.max_memory_allocated(),
+        "split_step_launches": snapshot(),
+        "collectives_a_step": {"counts": tally.counts,
+                               "bytes": tally.bytes}}
+    bad = (len(hist) != steps or met["skipped"]
+           or any(not math.isfinite(r["loss"]) or r["skipped"]
+                  for r in hist))
+    if bad:
+        raise AssertionError(f"zero3 train {mesh_shape}: "
+                             f"{out['train']['losses']}, skipped "
+                             f"{out['train']['skipped']}")
+    want = zero3_launches(cfg, steps)
+    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
+    if snap["launches"] != want or snap["routes"]["flash_attention"] != routes:
+        raise AssertionError(f"zero3 train {mesh_shape}: launches {snap}, "
+                             f"expected {want}, flash routes {routes}")
+    if peak_run >= CARD_BYTES:
+        raise AssertionError(f"zero3 train {mesh_shape}: peak {peak_run} B")
+    return out
+
+
+def zero3_spawn(smi, name, mesh_shape, parity, run, parity_tol):
+    """One mesh of phase 19: ``zero3_rank`` on one NCCL rank per card;
+    every rank's losses must agree.  Returns (rank 0's results with each
+    rank's train summary, the launch counts summed over the ranks)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(
+        functools.partial(zero3_rank, mesh_shape=mesh_shape, parity=parity,
+                          run=run, parity_tol=parity_tol),
+        math.prod(mesh_shape), device="cuda", timeout_s=1200)
+    res = ranks[0]
+    for r in ranks:
+        if r["train"]["losses"] != res["train"]["losses"]:
+            raise AssertionError(f"zero3 {name}: rank {r['rank']} disagrees")
+    res["ranks"] = [{"rank": r["rank"], "coordinate": r["coordinate"],
+                     "peak_mem_bytes_run": r["train"]["peak_mem_bytes_run"],
+                     "split_step_peak_bytes":
+                         r["train"]["split_step_peak_bytes"],
+                     "state_bytes_on_rank": r["train"]["state_bytes_on_rank"],
+                     "split": r["train"]["split"],
+                     "collectives_a_step": r["train"]["collectives_a_step"]}
+                    for r in ranks]
+    res.update(name=name, world=len(ranks), backend="nccl",
+               kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               seconds=time.perf_counter() - t0)
+    total = {"launches": {}, "routes": {}}
+    for r in ranks:
+        for k, v in r["train"]["launches"]["launches"].items():
+            total["launches"][k] = total["launches"].get(k, 0) + v
+        for k, rs in r["train"]["launches"]["routes"].items():
+            mine = total["routes"].setdefault(k, {})
+            for route, v in rs.items():
+                mine[route] = mine.get(route, 0) + v
+    return res, total
+
+
+def zero3_meshes(smi):
+    """Phase 19 (b), four cards: glm4-9b at all 40 layers from the
+    per-rank initialiser at (data, model) = (4, 1) and (2, 2), and at
+    (2, 2) first the 2-layer fp32 parity against one card's step (the
+    train parity's pin).  Each mesh's rank-0 peak of one step held within
+    ZERO3_PEAK_TOL of the dry run's prediction (``launch.dryrun.
+    mesh_cell``, traced here after the card ran the mesh), its kernel
+    calls equal to the card's launches."""
+    out, paths = {}, {}
+    for name, (shape, parity) in ZERO3_MESHES.items():
+        res, paths[f"zero3 bf16 {name} {GLM}"] = zero3_spawn(
+            smi, name, shape, parity, ZERO3_FULL, PARITY_TOL)
+        run = ZERO3_FULL
+        pred = dryrun.mesh_cell(GLM, run["layers"], run["batch"],
+                                run["seq"], shape)
+        peak = pred["memory"]["peak_per_device_GiB"] * 2**30
+        card = res["train"]["split_step_peak_bytes"]
+        calls = {k: v for k, v in res["train"]["split_step_launches"]
+                 ["launches"].items() if v}
+        res["dryrun"] = {"predicted_peak_bytes": peak,
+                         "card_peak_bytes": card, "peak_ratio": peak / card,
+                         "kernel_calls": pred["kernel_calls"],
+                         "card_launches_a_step": calls,
+                         "collectives": pred["collectives"],
+                         "roofline": pred["roofline"],
+                         "trace_s": pred["trace_s"]}
+        out[name] = res
+        print(json.dumps({"zero3_mesh": res}), flush=True)
+        if pred["kernel_calls"] != calls:
+            raise AssertionError(f"zero3 {name}: dry run calls "
+                                 f"{pred['kernel_calls']}, card {calls}")
+        if abs(peak / card - 1) > ZERO3_PEAK_TOL:
+            raise AssertionError(f"zero3 {name}: predicted peak {peak} B, "
+                                 f"card {card} B")
+    return out, paths
+
+
+def phase_zero3(smi):
+    """Phase 19, ``zero3``: (a) one NCCL rank at mesh (1, 1); (b) the
+    four-card meshes where four cards exist (``zero3_meshes``).  Prints
+    ``{"zero3": ...}``; returns the launch counts by path."""
+    res, total = zero3_spawn(smi, "one_card", (1, 1), True, ZERO3,
+                             ZERO3_ONE_TOL)
+    print(json.dumps({"zero3": res}), flush=True)
+    paths = {f"zero3 bf16 (1, 1) {GLM}": total,
+             f"zero3 parity fp32 (1, 1) {GLM}": res["parity"]["launches"]}
+    if torch.cuda.device_count() >= 4:
+        paths.update(zero3_meshes(smi)[1])
+    return paths
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -3887,6 +4205,7 @@ def main():
     by_path.update(phase_resilience(smi))
     by_path.update(phase_frontends(smi))
     by_path.update(phase_serve_sharded(smi))
+    by_path.update(phase_zero3(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

@@ -73,7 +73,9 @@ def _needs_grad(*tensors) -> bool:
 
 def _recompute_grads(ctx, plain, outputs_grad, **kwargs):
     """Grads of ``plain(*saved inputs, **kwargs)`` for the inputs that need
-    them, recomputed from the saved inputs; None for the others."""
+    them, recomputed from the saved inputs; None for the others.  The only
+    read of ``ctx.saved_tensors``: under ``torch.utils.checkpoint`` they
+    unpack once."""
     inputs = [t.detach().requires_grad_(need)
               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
     wanted = [t for t in inputs if t.requires_grad]
@@ -112,15 +114,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        ctx.causal, ctx.chunk = causal, min(512, k.shape[1])
         return _flash_fwd(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):
-        k = ctx.saved_tensors[1]
         return (*_recompute_grads(ctx, ref.blockwise_attention, (g,),
-                                  chunk=min(512, k.shape[1]),
-                                  causal=ctx.causal), None)
+                                  chunk=ctx.chunk, causal=ctx.causal), None)
 
 
 def flash_attention(q, k, v, causal=True):

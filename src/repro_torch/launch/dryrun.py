@@ -19,13 +19,14 @@ every layer, so no depth extrapolation is needed.
 
 The programs:
 
-- train: ``train.build_hybrid_train_step`` at (dp, pp, cp, tp, ep) =
-  (16, 1, 1, 16, 1), or (32, 1, 1, 16, 1) on the multi-pod mesh (the pod
-  axis is pure data parallelism, as in the reference), with explicit TP
-  and ``cfg.grad_accum`` microbatches; each rank's state is its blocks of
-  the pipeline params (``models.convert.to_rank_params``) and their AdamW
-  (or Adafactor) moments.  The port's hybrid step has no ZeRO-3: every
-  data replica holds its blocks whole.
+- train: the policy train program, ``train.build_train_step(cfg, opt,
+  policy=Policy(mesh, fsdp=True, seq_shard=True))`` (ZeRO-3 over data,
+  tensor and sequence parallelism over model, ``cfg.grad_accum``
+  microbatches), the reference's ``make_policy`` (``repro/launch/
+  dryrun.py:40-43``) on (data, model) = (16, 16), or (pod, data, model) =
+  (2, 16, 16) with ``fsdp_over_pod``; each rank's state is its blocks
+  (``models.shard_train_params`` of the parameters' shapes) and their
+  AdamW (or Adafactor) moments.
 - prefill and decode: ``serve.ServeEngine(cfg, params, policy)`` over
   (data, model) = (16, 16) (or (32, 16)) under ``kvdim``, tracing
   ``prefill`` and one ``decode_step`` with a full-length cache, as the
@@ -53,13 +54,11 @@ import torch
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
-TRAIN_MESH = {False: (16, 1, 1, 16, 1), True: (32, 1, 1, 16, 1)}
 SERVE_MESH = {False: (16, 16), True: (32, 16)}
 # what the port's checks raise for a program it does not run:
-# ``launch.train.check_hybrid`` (SystemExit), the pipeline cut and
-# ``blocks.check_serve_policy`` (NotImplementedError); anything else
-# fails the cell
-REFUSALS = (NotImplementedError, SystemExit)
+# ``blocks.check_train_policy`` and ``blocks.check_serve_policy``
+# (NotImplementedError); anything else fails the cell
+REFUSALS = (NotImplementedError,)
 
 
 def trace_serve(cfg, *, batch: int, prompt_len: int, policy=None,
@@ -99,35 +98,43 @@ def trace_serve(cfg, *, batch: int, prompt_len: int, policy=None,
     return tr
 
 
-def trace_train(cfg, *, batch: int, seq: int, policy=None,
-                microbatches: int = 1):
+def make_policy(mesh):
+    """The reference's dry-run policy (``repro/launch/dryrun.py:40-43``):
+    ZeRO-3 and sequence sharding on, fsdp over the pod axis too on the
+    multi-pod mesh."""
+    from repro_torch.sharding import Policy
+    multi = "pod" in mesh.mesh_dim_names
+    return Policy(mesh, pod_axis="pod" if multi else None, fsdp=True,
+                  fsdp_over_pod=multi, seq_shard=True)
+
+
+def trace_train(cfg, *, batch: int, seq: int, policy=None):
     """Trace one train step on ``meta``: ``build_train_step`` on one
-    device (``policy`` None, as ``launch.train.train``), or
-    ``build_hybrid_train_step`` over ``policy``'s mesh on this rank's
-    blocks.  The state, the parameters and optimizer moments of
-    ``init_train_state``, counts as live from the start.  Returns the
-    trace."""
+    device (``policy`` None, as ``launch.train.train``), or the policy
+    train program (``build_train_step(..., policy=)``, ``cfg.grad_accum``
+    microbatches) on this rank's blocks of ``policy``'s mesh.  The state,
+    the parameters and optimizer moments of ``init_train_state``, counts
+    as live from the start.  Returns the trace."""
     from repro_torch.launch.specs import param_specs
-    from repro_torch.models.convert import to_rank_params
-    from repro_torch.models.model import to_pipeline_params
+    from repro_torch.models.model import DTYPES, shard_train_params
     from repro_torch.optim import make_optimizer
     from repro_torch.roofline.hlo_profile import Trace
-    from repro_torch.train import (build_hybrid_train_step,
-                                   build_train_step, init_train_state)
-    cfg = dataclasses.replace(cfg, grad_accum=1)
-    opt = make_optimizer(cfg.optimizer, total_steps=10)
+    from repro_torch.train import build_train_step, init_train_state
     if policy is None:
-        step = build_train_step(cfg, opt)
-    else:
-        step = build_hybrid_train_step(cfg, policy, opt,
-                                       num_microbatches=microbatches)
+        cfg = dataclasses.replace(cfg, grad_accum=1)
+    opt = make_optimizer(cfg.optimizer, total_steps=10)
+    step = build_train_step(cfg, opt, policy=policy)
     params = param_specs(cfg)
     if policy is not None:
-        params = to_rank_params(cfg, policy, to_pipeline_params(
-            cfg, params, policy.pipe_size))
+        params = shard_train_params(cfg, params, policy)
     state = init_train_state(cfg, params, opt)
     batch_ = {k: torch.empty((batch, seq), dtype=torch.long, device="meta")
               for k in ("tokens", "labels")}
+    if cfg.frontend != "none":
+        # the stub frontends' embeddings take the tokens' place
+        del batch_["tokens"]
+        batch_["embeds"] = torch.empty((batch, seq, cfg.d_model),
+                                       dtype=DTYPES[cfg.dtype], device="meta")
     tr = Trace().adopt(state["params"], state["opt"])
     with tr:
         step(state, batch_)
@@ -136,9 +143,12 @@ def trace_train(cfg, *, batch: int, seq: int, policy=None,
 
 def program(cell_kind: str, multi_pod: bool, cfg, batch: int) -> str:
     if cell_kind == "train":
-        fact = ",".join(map(str, TRAIN_MESH[multi_pod]))
-        return (f"hybrid ({fact}), {max(cfg.grad_accum, 1)} microbatch(es), "
-                f"explicit TP, no ZeRO-3")
+        mesh = ("(pod, data, model) = (2, 16, 16), ZeRO-3 over pod and data"
+                if multi_pod else "(data, model) = (16, 16), ZeRO-3 over "
+                "data")
+        return (f"policy train step {mesh}, TP/SP over model, "
+                f"{max(cfg.grad_accum, 1)} microbatch(es), remat "
+                f"{'on' if cfg.remat else 'off'}")
     dp, tp = SERVE_MESH[multi_pod]
     rep = "" if batch % dp == 0 else ", batch replicated over data"
     return f"ServeEngine (data, model) = ({dp}, {tp}), kvdim{rep}"
@@ -186,19 +196,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import mesh as launch_mesh
-    from repro_torch.launch.train import check_hybrid
+    from repro_torch.models.blocks import check_train_policy
     from repro_torch.roofline.analysis import SOURCE
     from repro_torch.sharding import Policy
 
     cfg = get_config(arch)
     cell = SHAPES[shape_name]
     B, S = cell.global_batch, cell.seq_len
-    if cell.kind == "train":
-        chips = 1
-        for d in TRAIN_MESH[multi_pod]:
-            chips *= d
-    else:
-        chips = SERVE_MESH[multi_pod][0] * SERVE_MESH[multi_pod][1]
+    chips = SERVE_MESH[multi_pod][0] * SERVE_MESH[multi_pod][1]
     result = {
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16", "chips": chips,
@@ -211,12 +216,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     t0 = time.time()
     try:
         if cell.kind == "train":
-            fact = TRAIN_MESH[multi_pod]
-            check_hybrid(cfg, fact, S)
-            mesh = launch_mesh.make_hybrid_mesh(*fact, device="meta")
-            policy = Policy.for_mesh(mesh, explicit_tp=fact[3] > 1)
-            tr = trace_train(cfg, batch=B, seq=S, policy=policy,
-                             microbatches=max(cfg.grad_accum, 1))
+            mesh = launch_mesh.make_production_mesh(
+                multi_pod=multi_pod, device="meta", all_ranks_group=True)
+            policy = make_policy(mesh)
+            check_train_policy(cfg, policy)
+            tr = trace_train(cfg, batch=B, seq=S, policy=policy)
         else:
             dp, tp = SERVE_MESH[multi_pod]
             if B % dp:
@@ -265,6 +269,38 @@ def world1_cell(kind: str, arch: str, layers: int, batch: int,
            "seq": seq, "source": SOURCE}
     out.update(summarize(tr, cfg, shape, 1))
     # the model-flops terms are the reference's shape cells', not this one
+    for key in ("model_flops_global", "useful_flops_ratio", "mfu_bound"):
+        out["roofline"].pop(key)
+    out["trace_s"] = round(time.time() - t0, 1)
+    return out
+
+
+def mesh_cell(arch: str, layers: int, batch: int, seq: int,
+              mesh_shape: tuple) -> dict:
+    """The policy train program of ``arch`` cut to ``layers`` at a
+    caller's (data, model) ``mesh_shape``, batch and sequence: rank 0 of a
+    fake world of that size traces one step (``Policy(mesh)``, the
+    reference's defaults), so the card's run of the same cell can be held
+    against it (its peak, collectives, kernel calls)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.roofline.analysis import SOURCE
+    from repro_torch.sharding import Policy
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    chips = mesh_shape[0] * mesh_shape[1]
+    launch_mesh.init_fake_world(0, chips)
+    t0 = time.time()
+    try:
+        mesh = launch_mesh.make_host_mesh(mesh_shape, device="meta",
+                                          all_ranks_group=True)
+        tr = trace_train(cfg, batch=batch, seq=seq, policy=Policy(mesh))
+    finally:
+        dist.destroy_process_group()
+    out = {"kind": "train", "arch": arch, "layers": layers, "batch": batch,
+           "seq": seq, "mesh": list(mesh_shape), "source": SOURCE}
+    out.update(summarize(tr, cfg, "train_4k", chips))
     for key in ("model_flops_global", "useful_flops_ratio", "mfu_bound"):
         out["roofline"].pop(key)
     out["trace_s"] = round(time.time() - t0, 1)

@@ -235,18 +235,26 @@ def _make_mesh(shape, axes, devices=None, *, device=None,
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         all_ranks_group: bool = False):
     """Single pod: 16 x 16 = 256 ranks (data, model).  Multi-pod: 2 x 16 x
     16 = 512 ranks (pod, data, model); the pod axis is pure data
-    parallelism."""
+    parallelism.  ``all_ranks_group`` as ``_make_mesh`` (the policy train
+    step's one all-reduce over the mesh needs it)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make_mesh(shape, axes, device=device)
+    return _make_mesh(shape, axes, device=device,
+                      all_ranks_group=all_ranks_group)
 
 
-def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, device=None):
-    """Small mesh over the world's ranks: smoke tests, examples, checks."""
-    return _make_mesh(shape, axes, device=device)
+def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, device=None,
+                   all_ranks_group: bool = False):
+    """Small mesh over the world's ranks: smoke tests, examples, checks,
+    and the policy train program's (data, model) mesh, which passes
+    ``all_ranks_group`` (``_make_mesh``) for its one all-reduce over the
+    mesh."""
+    return _make_mesh(shape, axes, device=device,
+                      all_ranks_group=all_ranks_group)
 
 
 def make_pipeline_mesh(num_stages: int, tp: int = 1, *, device=None):

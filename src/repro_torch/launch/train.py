@@ -11,6 +11,19 @@ runs on the host through the kernels' plain versions.  ``train()`` is the
 same path for a caller with a ``ModelConfig`` of its own (for example one
 cut in depth).
 
+Without ``--hybrid-mesh`` on more than one device it runs the
+reference's production program, ``build_train_step`` under
+``Policy(mesh)`` on the ``(n, 1)`` (data, model) mesh (ZeRO-3 over data,
+tensor and sequence parallelism over model; ``train/step.py``), one
+process per rank: ``--world N`` (default every visible card on
+``cuda``, 1 on ``cpu``, the counterpart of
+``--xla_force_host_platform_device_count=N``); at world 1 it is the
+one-device path.  ``train(cfg, ..., mesh=(dp, tp))`` is the per-rank form
+for a caller already inside a world (``chip_smoke.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --world 8 --steps 3
+
 Hybrid DP x pipe x ctx x TP x EP (DESIGN §5, §6, §8): ``--hybrid-mesh
 DP,PP,CP,TP,EP`` (or DP,PP,CP,TP with EP = 1, or DP,PP,TP with CP = EP =
 1) runs the scheduled pipeline executor over a (data, pipe, model) mesh,
@@ -76,8 +89,11 @@ from repro_torch.data import DataConfig, PrefetchIterator, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import init_params, init_pipeline_params
+from repro_torch.models.blocks import check_train_policy
 from repro_torch.models.convert import to_rank_params
-from repro_torch.models.model import _check_pipelineable
+from repro_torch.models.model import (_check_pipelineable,
+                                      init_rank_train_params,
+                                      shard_train_params)
 from repro_torch.optim import make_optimizer
 from repro_torch.resilience import FaultInjector, FaultPlan, nan_grad_hook
 from repro_torch.sharding import Policy
@@ -86,6 +102,7 @@ from repro_torch.train import (RECOVERABLE, LoopConfig,
                                elastic_restart_on_failure,
                                hybrid_param_parts, init_train_state,
                                restart_on_failure)
+from repro_torch.train.step import sp_state_parts
 
 def _plan(fault_plan):
     return (FaultPlan.parse(fault_plan) if isinstance(fault_plan, str)
@@ -96,42 +113,98 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
           seed: int = 0, device=None, max_restarts: int = 3,
           rollback_after_skips: int | None = None, ckpt_dir=None,
           ckpt_every: int = 50, keep: int = 3, fault_plan=None,
-          logger=print):
+          mesh=None, rank_init: bool = False, logger=print):
     """Train ``cfg`` from a random init (or the newest verified checkpoint
     in ``ckpt_dir``) for ``steps`` steps, saving every ``ckpt_every``
     steps and keeping ``keep``; ``fault_plan`` (a ``FaultPlan`` or its CLI
     string) injects its faults.  Returns ``(state, history)``
-    (``train/loop.py``)."""
+    (``train/loop.py``).
+
+    ``mesh=(dp, tp)``: this rank's part of the policy train program over a
+    (data, model) mesh under ``Policy(mesh)`` (ZeRO-3 over data, tensor
+    and sequence parallelism over model), every rank of a world already
+    joined calling it together.  The state is this rank's blocks: cut
+    from ``init_params(seed)`` on ``device`` (the one-device run's
+    values), or with ``rank_init`` drawn on ``device`` alone
+    (``models.init_rank_train_params``; no host or card holds the whole
+    model).  Checkpoints store each leaf whole and restore each rank's
+    blocks (``checkpoint/ckpt.py``); the supervisor restarts the whole
+    mesh on the reference's recoverable set, as ``train_hybrid_rank``'s
+    does, and only the mesh's first rank damages a checkpoint."""
     device = resolve_device(device)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed))
     opt = make_optimizer(cfg.optimizer, total_steps=steps, base_lr=lr)
     cfg = dataclasses.replace(cfg, grad_accum=1)
-    step = build_train_step(cfg, opt)
+    policy = parts = None
+    supervise = {}
+    if mesh is not None:
+        policy = Policy(launch_mesh.make_host_mesh(
+            tuple(mesh), device=device, all_ranks_group=True))
+        check_train_policy(cfg, policy)
+        parts = sp_state_parts(cfg, policy, opt)
+        supervise = dict(policy=policy, parts=parts, recoverable=RECOVERABLE)
+    step = build_train_step(cfg, opt, policy=policy)
     plan = _plan(fault_plan)
     if plan is not None:
         # the poisoned sibling is the same step with the gradient fault
         # hook built in; the injector chooses between them on the host
         poisoned = build_train_step(
-            cfg, opt, fault_hook=nan_grad_hook(plan.poison_value))
+            cfg, opt, policy=policy,
+            fault_hook=nan_grad_hook(plan.poison_value))
         step = FaultInjector(plan, step, poisoned_step_fn=poisoned,
-                             ckpt_dir=ckpt_dir)
+                             ckpt_dir=ckpt_dir,
+                             corrupt_rank=policy is None
+                             or dist.get_rank() == 0)
 
     def make_iter(start):
         return PrefetchIterator(data, start_step=start)
 
     def make_state():
-        params = init_params(cfg, torch.Generator(device=device)
-                             .manual_seed(seed), device)
+        if policy is None:
+            params = init_params(cfg, torch.Generator(device=device)
+                                 .manual_seed(seed), device)
+            n = sum(p.numel() for p in params.values())
+            logger(f"{cfg.name}: {n/1e6:.1f}M params, device={device}")
+            return init_train_state(cfg, params, opt)
+        if rank_init:
+            params = init_rank_train_params(cfg, policy, seed, device)
+        else:
+            params = shard_train_params(cfg, init_params(
+                cfg, torch.Generator(device=device).manual_seed(seed),
+                device), policy)
         n = sum(p.numel() for p in params.values())
-        logger(f"{cfg.name}: {n/1e6:.1f}M params, device={device}")
+        logger(f"{cfg.name}: {n/1e6:.1f}M params on this rank, mesh="
+               f"{dict(zip(policy.axis_names, policy.mesh.shape))} (ZeRO-3 "
+               f"over data, TP/SP over model), device={device}")
         return init_train_state(cfg, params, opt)
 
     loop_cfg = LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
                           ckpt_every=ckpt_every, keep=keep, log_every=10,
                           rollback_after_skips=rollback_after_skips)
     return restart_on_failure(make_state, step, make_iter, loop_cfg,
-                              max_restarts=max_restarts, logger=logger)
+                              max_restarts=max_restarts, logger=logger,
+                              **supervise)
+
+
+def _sp_rank_main(rank, world_mesh, *, cfg, world, **kw):
+    """Spawned on every rank by ``train_sp``: the history only."""
+    logs = []
+    _, hist = train(cfg, mesh=(world, 1), logger=logs.append, **kw)
+    return {"history": list(hist), "health": hist.health, "log": logs}
+
+
+def train_sp(cfg, world: int, *, device=None, timeout_s: float = 1800.0,
+             **kw) -> list:
+    """Spawn ``world`` ranks on ``device`` (NCCL, one rank per card, for
+    ``cuda``; gloo for ``cpu``) and run the policy train program on the
+    reference's ``(world, 1)`` mesh on each (``train(..., mesh=)``);
+    returns each rank's ``{"history", "health", "log"}``."""
+    device = resolve_device(device)
+    return launch_mesh.spawn(
+        functools.partial(_sp_rank_main, cfg=cfg, world=world,
+                          device=device.type, **kw),
+        world, device=device.type, timeout_s=timeout_s)
 
 
 def parse_hybrid(spec: str) -> tuple:
@@ -332,6 +405,12 @@ def main(argv=None):
                          "accepted with EP=1, a 3-value DP,PP,TP form with "
                          "CP=EP=1); CP > 1 rings attention over the "
                          "sequence shards and needs --seq divisible by CP")
+    ap.add_argument("--world", type=int, default=None,
+                    help="without --hybrid-mesh: run the policy train "
+                         "program (ZeRO-3 over data, TP/SP over model) on "
+                         "the reference's (WORLD, 1) mesh, one process per "
+                         "rank (default: every visible card on cuda, 1 on "
+                         "cpu); 1 is the one-device path")
     ap.add_argument("--microbatches", type=int, default=4,
                     help="pipeline microbatches per step (hybrid mesh only)")
     ap.add_argument("--schedule", default="1f1b",
@@ -383,8 +462,20 @@ def main(argv=None):
                  + (f", {sum(r['left'] for r in ranks)} left"
                     if any(r["left"] for r in ranks) else ""))
     else:
-        state, hist = train(cfg, **run)
-        health, where = hist.health, "one device"
+        world = args.world
+        if world is None:
+            world = (torch.cuda.device_count()
+                     if resolve_device(args.device).type == "cuda" else 1)
+        if world > 1:
+            ranks = train_sp(cfg, world, **run)
+            for line in ranks[0]["log"]:
+                print(line)
+            state, hist = None, ranks[0]["history"]
+            health = ranks[0]["health"]
+            where = f"mesh (data, model) = ({world}, 1), {world} ranks"
+        else:
+            state, hist = train(cfg, **run)
+            health, where = hist.health, "one device"
     health = " ".join(f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
                       for k, v in health.items())
     print(f"done: final loss {hist[-1]['loss']!r} over {len(hist)} steps "

@@ -42,7 +42,8 @@ from repro_torch.core.ring_attention import (ring_attention,
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import blockwise_attention  # noqa: F401  (re-exported)
 
-from .common import apply_rope, dense_init
+from .common import (apply_rope, dense_init, gather_block, seq_gather,
+                     seq_scatter)
 
 NEG_INF = -1e30
 
@@ -178,6 +179,43 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
             _prefill_cache_tp(k, v, cache, index, policy, kv_whole)
     out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
     return L.affine_scatter(out, p["wo"], axis=ax)
+
+
+def attention_block_sp(p, specs, h, cfg, policy, *, positions, fsdp_axes):
+    """The attention sub-layer of the policy train program on this rank
+    (``models.forward`` under a policy with ``seq_shard``).
+
+    h: (B/dp, S/tp, d), the normed residual's sequence shard; ``p``: this
+    rank's blocks of wq, wk, wv, wo laid out by ``specs`` (ZeRO-3 over the
+    fsdp axes, heads over ``model``).  The sequence is gathered, each
+    weight gathered over the fsdp axes right before its use, q on this
+    rank's H/tp query heads; attention runs on them through
+    ``ops.flash_attention`` (whole sequence, causal), and wo's row block
+    reduce-scatters the partial output back onto the sequence shard.
+    Where ``model`` does not divide the K/V heads (glm4-9b's 2 under TP 4)
+    wk and wv are gathered whole over ``model`` as well and each rank
+    takes the K/V heads its query heads attend (``_kv_of_local_heads``);
+    their gradients return to the blocks through the gather's adjoint.
+    ``positions``: (B/dp, S), global."""
+    ax = policy.model_axis
+    tp = policy.model_size
+    hd = cfg.resolved_head_dim
+    kv_whole = cfg.num_kv_heads % tp != 0
+    kv_axes = fsdp_axes + ((ax,) if kv_whole else ())
+    x = seq_gather(h, ax)
+    q = _split_heads(x @ gather_block(p["wq"], specs["wq"], fsdp_axes),
+                     cfg.num_heads // tp, hd)
+    kh = cfg.num_kv_heads if kv_whole else cfg.num_kv_heads // tp
+    k = _split_heads(x @ gather_block(p["wk"], specs["wk"], kv_axes), kh, hd)
+    v = _split_heads(x @ gather_block(p["wv"], specs["wv"], kv_axes), kh, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_whole:
+        k, v = (_kv_of_local_heads(t, cfg, policy) for t in (k, v))
+    out = ops.flash_attention(q, k, v, causal=True)
+    out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
+    y = out @ gather_block(p["wo"], specs["wo"], fsdp_axes)
+    return seq_scatter(y, ax, tp > 1)
 
 
 def _kv_of_local_heads(t, cfg, policy):

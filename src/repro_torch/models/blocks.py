@@ -30,10 +30,13 @@ from repro_torch.core import primitives as prim
 from repro_torch.core.compile import dist_jit
 from repro_torch.sharding import Partitioned
 
-from .attention import attention_block, attention_block_tp, attn_init
-from .common import mlp_apply, mlp_init, rmsnorm, rmsnorm_sharded, subtree
-from .moe import moe_apply, moe_init, moe_serve_body, moe_stage_body
-from .ssm import ssm_block, ssm_block_tp, ssm_init
+from .attention import (attention_block, attention_block_sp,
+                        attention_block_tp, attn_init)
+from .common import (mlp_apply, mlp_apply_sp, mlp_init, rmsnorm,
+                     rmsnorm_sharded, subtree)
+from .moe import (moe_apply, moe_apply_sp, moe_init, moe_serve_body,
+                  moe_stage_body)
+from .ssm import ssm_block, ssm_block_sp, ssm_block_tp, ssm_init
 
 
 def layer_kinds(cfg, layer: int) -> tuple[str, str]:
@@ -103,6 +106,89 @@ def check_serve_policy(cfg, policy):
         raise NotImplementedError(
             f"sharded serving of {cfg.name} splits {sorted(widths)} over "
             f"the model axis: {bad} not divisible by its size {tp}")
+
+
+def is_sp_policy(policy) -> bool:
+    """Whether ``policy`` selects the policy train program (ZeRO-3 over
+    the fsdp axes, tensor and sequence parallelism over ``model``): a
+    policy with ``fsdp`` or ``seq_shard`` on, as ``Policy(mesh)`` makes
+    it, without a live ctx, ep or pipe axis or ``explicit_tp`` (those keep
+    the region path, as ``Policy.for_mesh``, which turns both off)."""
+    return (policy is not None and (policy.fsdp or policy.seq_shard)
+            and policy.active_ctx_axis is None
+            and policy.active_ep_axis is None and policy.pipe_size == 1
+            and not policy.explicit_tp)
+
+
+def check_train_policy(cfg, policy):
+    """Refuse what the policy train program does not cover, before
+    anything runs: a mesh axis besides pod, data and model, or a policy
+    without ``seq_shard`` (``ValueError``); a width the program splits
+    over the model axis that the axis does not divide
+    (``NotImplementedError``, naming each): the query heads (the
+    reference runs them, ``ROADMAP.md`` item 16), the SSM heads and
+    d_inner, and the experts.  K/V head counts the axis does not divide
+    are trained: wk and wv are gathered whole (``attention_block_sp``);
+    a d_ff or vocabulary it does not divide stays whole, as the
+    reference's ``param_spec`` leaves it."""
+    extra = [n for n in policy.axis_names
+             if n not in (policy.pod_axis, policy.data_axis,
+                          policy.model_axis) and policy.axis_size(n) > 1]
+    if extra:
+        raise ValueError(f"the policy train program runs over (pod, data, "
+                         f"model); the mesh also has {extra}")
+    if not policy.seq_shard:
+        raise ValueError("the policy train program shards the residual's "
+                         "sequence over the model axis: seq_shard=True")
+    kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
+    widths = {}
+    if any(m == "attn" for m, _ in kinds):
+        widths["num_heads"] = cfg.num_heads
+    if any(m == "ssm" for m, _ in kinds):
+        widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
+    if any(f == "moe" for _, f in kinds):
+        widths["num_experts"] = cfg.num_experts
+    tp = policy.model_size
+    bad = {k: v for k, v in widths.items() if v % tp}
+    if bad:
+        raise NotImplementedError(
+            f"the policy train program of {cfg.name} splits {sorted(widths)}"
+            f" over the model axis: {bad} not divisible by its size {tp}")
+
+
+def superblock_apply_sp(p, specs, x, cfg, policy, *, positions, fsdp_axes):
+    """One superblock of the policy train program on this rank: ``x`` the
+    residual's (B/dp, S/tp, d) shard, ``p`` this rank's blocks of the
+    superblock's leaves laid out by ``specs`` (without the stack dim).
+    Each layer: x + mixer(norm(x)); x + ffn(norm(x)), the norms on the
+    sequence shard through the RMSNorm kernel, each sublayer gathering
+    the sequence and its weights inside.  Returns (x, aux), aux the MoE
+    load-balance loss summed over the period."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.block_period):
+        mixer, ffn = layer_kinds(cfg, i)
+        pp, ss = subtree(p, f"pos{i}"), subtree(specs, f"pos{i}")
+        h = rmsnorm(x, pp["norm_mixer"])
+        if mixer == "attn":
+            x = x + attention_block_sp(subtree(pp, "attn"),
+                                       subtree(ss, "attn"), h, cfg, policy,
+                                       positions=positions,
+                                       fsdp_axes=fsdp_axes)
+        else:
+            x = x + ssm_block_sp(subtree(pp, "ssm"), subtree(ss, "ssm"), h,
+                                 cfg, policy, fsdp_axes=fsdp_axes)
+        if ffn == "none":
+            continue
+        h = rmsnorm(x, pp["norm_ffn"])
+        if ffn == "mlp":
+            x = x + mlp_apply_sp(h, subtree(pp, "mlp"), subtree(ss, "mlp"),
+                                 cfg.mlp_type, policy, fsdp_axes)
+        else:
+            y, aux_i = moe_apply_sp(h, subtree(pp, "moe"), subtree(ss, "moe"),
+                                    cfg, policy, fsdp_axes)
+            x = x + y
+            aux = aux + aux_i
+    return x, aux
 
 
 def _tp_fusable(cfg, policy, mixer, ffn, mode) -> bool:

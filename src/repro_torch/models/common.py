@@ -43,6 +43,83 @@ def rmsnorm_sharded(x, w, axis, eps: float = 1e-6):
     return (out * w.float()).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# The policy train program's data movement (``forward`` under a policy with
+# ``seq_shard``): ZeRO-3 gathers of weight blocks and the sequence-parallel
+# boundaries of the residual.  Every function runs on this rank's tensors
+# inside a region (``core/compile.py::region``), where a replicated value's
+# cotangent is a per-rank contribution.
+# ---------------------------------------------------------------------------
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes one entry of a ``PartitionSpec`` names: ``()``,
+    ``(axis,)`` or the tuple itself."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_names(spec, dim: int, axis) -> bool:
+    """Whether ``spec`` (a ``PartitionSpec``) splits ``dim`` over ``axis``."""
+    return dim < len(spec) and axis in spec_axes(spec[dim])
+
+
+def gather_block(w, spec, axes):
+    """``w``, this rank's block of a weight laid out by ``spec``, gathered
+    along every dim that ``spec`` splits over one of ``axes`` (the ZeRO-3
+    gather, the paper's broadcast B, right before the weight is used; its
+    adjoint reduce-scatters the gradient back onto the block, R).  A dim
+    split over several axes (``("pod", "data")``) is gathered minor axis
+    first, so its blocks land in the spec's order.  Axes of size 1 move
+    nothing."""
+    for d in range(len(spec)):
+        for a in reversed(spec_axes(spec[d])):
+            if a in axes and prim.axis_size(a) > 1:
+                w = prim.all_gather(w, a, d)
+    return w
+
+
+def seq_gather(h, axis):
+    """The sequence-sharded residual ``h`` (B, S/tp, ...) gathered whole
+    over ``axis`` (B, S, ...) before a sublayer's column-parallel
+    projections; its adjoint reduce-scatters the contributions."""
+    return prim.all_gather(h, axis, 1) if prim.axis_size(axis) > 1 else h
+
+
+def seq_scatter(y, axis, partial: bool):
+    """A sublayer's (B, S, d) output back onto this rank's sequence block
+    over ``axis``: reduce-scattered when each rank holds a partial sum
+    (a row-parallel projection), sliced when every rank computed the whole
+    (a width the axis does not split; the slice's adjoint zero-pads).  The
+    result is contiguous: the RMSNorm kernel takes whole rows."""
+    tp = prim.axis_size(axis)
+    if tp == 1:
+        return y
+    if partial:
+        return prim.reduce_scatter(y, axis, 1)
+    n = y.shape[1] // tp
+    return y.narrow(1, prim.axis_index(axis) * n, n).contiguous()
+
+
+def mlp_apply_sp(h, p, specs, mlp_type: str, policy, fsdp_axes):
+    """The dense FFN (or the shared experts') on this rank's d_ff block:
+    ``h`` (B, S/tp, d) normed and sequence-sharded, ``p`` this rank's
+    blocks laid out by ``specs`` (each leaf's spec without the stack dim).
+    The sequence is gathered, the up / gate blocks are column-parallel and
+    w_down's row block reduce-scatters the partial sums back onto the
+    sequence shard."""
+    ax = policy.model_axis
+    x = seq_gather(h, ax)
+    up = x @ gather_block(p["w_up"], specs["w_up"], fsdp_axes)
+    if mlp_type == "swiglu":
+        up = F.silu(x @ gather_block(p["w_gate"], specs["w_gate"],
+                                     fsdp_axes)) * up
+    else:
+        up = F.gelu(up, approximate="tanh")
+    y = up @ gather_block(p["w_down"], specs["w_down"], fsdp_axes)
+    return seq_scatter(y, ax, spec_names(specs["w_up"], 1, ax))
+
+
 def rope_freqs(head_dim: int, theta: float, device=None):
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim

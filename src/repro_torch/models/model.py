@@ -20,6 +20,7 @@ Modes:
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -28,12 +29,15 @@ import torch.nn.functional as F
 from repro_torch.core import layers as L
 from repro_torch.core import primitives as prim
 from repro_torch.core.compile import local_blocks, region
+from repro_torch.core.linop import PartitionSpec as P
 from repro_torch.device import resolve_device
 from repro_torch.sharding import Partitioned
 
-from .blocks import (check_serve_policy, pipeline_stage_body,
-                     superblock_apply, superblock_init)
-from .common import dense_init, normal_init, rmsnorm, subtree
+from .blocks import (check_serve_policy, check_train_policy, is_sp_policy,
+                     pipeline_stage_body, superblock_apply,
+                     superblock_apply_sp, superblock_init)
+from .common import (dense_init, gather_block, normal_init, rmsnorm,
+                     seq_gather, seq_scatter, spec_axes, spec_names, subtree)
 from .moe import EXPERT_LEAVES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -357,23 +361,185 @@ def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
         shape, dim = tuple(like.shape), _serve_split(cfg, key, tp)
         if dim is not None:
             shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
-        gen = whole if dim is None else mine
-        name = key.rsplit(".", 1)[-1]
-        how = "ones" if name.startswith("norm") else _FP32_INIT.get(name)
-        if how in ("ones", "zeros"):
-            out[key] = torch.full(shape, float(how == "ones"),
-                                  dtype=torch.float32, device=device)
-        elif how == "log_uniform":
-            out[key] = torch.rand(shape, generator=gen,
-                                  device=device) * math.log(16.0)
-        else:
-            stacked = key.startswith("blocks.")
-            out[key] = normal_init(
-                shape[1:] if stacked else shape,
-                1 / math.sqrt(like.shape[-2]),
-                torch.float32 if how == "normal" else dtype, gen,
-                stacked=shape[0] if stacked else 0)
+        out[key] = _draw_block(key, tuple(like.shape), shape,
+                               whole if dim is None else mine, dtype)
     return out
+
+
+def _draw_block(key, global_shape, shape, gen, dtype):
+    """A block of ``shape`` of leaf ``key`` drawn from ``gen`` (on its
+    device) at ``init_params``' distribution of the GLOBAL leaf: unit fp32
+    norm weights, ``ssm_norm`` and ``d_skip`` ones, ``dt_bias`` zeros,
+    ``a_log`` uniform in [0, log 16), the router N(0, 1/d) in fp32, every
+    other leaf N(0, 1/d_in) in ``dtype`` (d_in the global leaf's second
+    last dim)."""
+    device = gen.device
+    name = key.rsplit(".", 1)[-1]
+    how = "ones" if name.startswith("norm") else _FP32_INIT.get(name)
+    if how in ("ones", "zeros"):
+        return torch.full(shape, float(how == "ones"), dtype=torch.float32,
+                          device=device)
+    if how == "log_uniform":
+        return torch.rand(shape, generator=gen, device=device) * math.log(16.0)
+    stacked = key.startswith("blocks.")
+    return normal_init(shape[1:] if stacked else shape,
+                       1 / math.sqrt(global_shape[-2]),
+                       torch.float32 if how == "normal" else dtype, gen,
+                       stacked=shape[0] if stacked else 0)
+
+
+# ---------------------------------------------------------------------------
+# The policy train program (the reference's GSPMD ``build_train_step`` under
+# ``Policy(mesh)``: ZeRO-3 over the fsdp axes, tensor and sequence
+# parallelism over ``model``), one rank of it.  Each leaf is this rank's
+# block under the reference's ``param_spec`` rules
+# (``repro/sharding/policy.py:644-697``): ``fsdp`` -> data (and pod under
+# ``fsdp_over_pod``), heads / ff / vocab / model / experts -> model, a dim
+# its axes do not divide left whole.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _param_shapes(cfg) -> tuple:
+    """``((name, global shape), ...)`` of ``cfg``'s parameters, from
+    ``launch.specs.param_specs`` (nothing allocated), once a config."""
+    from repro_torch.launch.specs import param_specs
+    return tuple((k, tuple(v.shape)) for k, v in param_specs(cfg).items())
+
+
+def train_param_specs(cfg, policy) -> dict:
+    """``{name: PartitionSpec}`` of every parameter of ``cfg`` under
+    ``policy``'s ``param_spec`` (the global shapes of
+    ``launch.specs.param_specs``; nothing allocated).  A stacked leaf's
+    spec leads with None, its superblock dim."""
+    return {k: policy.param_spec(k, shape) for k, shape in _param_shapes(cfg)}
+
+
+def fsdp_axes(policy) -> tuple:
+    """The mesh axes ZeRO-3 shards parameters over (``phys("fsdp")``):
+    ``()``, ``("data",)`` or ``("pod", "data")``."""
+    ax = policy.phys("fsdp")
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def shard_train_params(cfg, params, policy) -> dict:
+    """This rank's blocks of the GLOBAL ``params`` (``init_params``'s
+    tree, the same on every rank) for the policy train program: each leaf
+    cut under ``train_param_specs``, always a fresh copy (the optimizer
+    updates the state in place, and must not write into ``params``)."""
+    check_train_policy(cfg, policy)
+    blocks = local_blocks(train_param_specs(cfg, policy), params, policy)
+    return {k: v.clone(memory_format=torch.contiguous_format)
+            for k, v in blocks.items()}
+
+
+def init_rank_train_params(cfg, policy, seed: int, device=None,
+                           dtype=None) -> dict:
+    """This rank's blocks for the policy train program, drawn on
+    ``device`` alone (no host or card holds the whole model), at
+    ``init_params``' distributions (``init_rank_params``'s rules: unit
+    fp32 norms, the SSM vectors' fixed draws, N(0, 1/d_in) of the GLOBAL
+    leaf elsewhere).  Every block of a leaf has its own
+    ``torch.Generator``, seeded from ``seed``, the leaf and the block's
+    position on the axes that split it, so the ranks that hold the same
+    block draw the same values.  The values are not ``init_params(seed)``'s
+    cut."""
+    check_train_policy(cfg, policy)
+    device = resolve_device(device)
+    dtype = dtype or DTYPES[cfg.dtype]
+    with prim.use_mesh(policy.mesh):
+        index = {a: prim.axis_index(a) for a in policy.axis_names}
+    out = {}
+    for i, (key, global_shape) in enumerate(_param_shapes(cfg)):
+        shape, block = list(global_shape), 0
+        for d, entry in enumerate(policy.param_spec(key, global_shape)):
+            for a in spec_axes(entry):
+                shape[d] //= policy.axis_size(a)
+                block = block * policy.axis_size(a) + index[a]
+        gen = torch.Generator(device=device).manual_seed(
+            (seed * 1_000_003 + i * 65_537 + block) % 2 ** 63)
+        out[key] = _draw_block(key, global_shape, tuple(shape), gen, dtype)
+    return out
+
+
+def _vocab_split(specs, cfg, policy) -> bool:
+    """Whether the model axis splits the vocabulary: the logits are then
+    this rank's vocabulary block (the reference's ``constrain(logits,
+    "batch", "ctx", "vocab")``)."""
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    return spec_names(specs[head], 0 if cfg.tie_embeddings else 1,
+                      policy.model_axis)
+
+
+def _forward_sp(params, batch, cfg, policy):
+    """``forward`` in train mode under a ``seq_shard`` policy: one rank of
+    the policy train program (module section above).
+
+    ``params``: this rank's blocks (``shard_train_params``,
+    ``init_rank_train_params``); ``batch``: this rank's rows of the global
+    batch, ``{"tokens": (B/dp, S)}`` or ``{"embeds": (B/dp, S, d)}``.  The
+    residual is (B/dp, S/tp, d) between sublayers.  The embedding lookup
+    is vocab-parallel where the model axis splits the vocabulary: rows
+    outside this rank's block are masked and the partial rows
+    reduce-scattered onto the sequence shard, so ``embed`` gets its
+    gradient once.  Each superblock runs under ``torch.utils.checkpoint``
+    when ``cfg.remat`` is set, its weight gathers inside: autograd keeps
+    only the residual a superblock, and the backward gathers again.  The
+    final norm runs on the sequence shard; the head (``lm_head``, or
+    ``embed``ᵀ when tied) is column-parallel over the vocabulary.  Returns
+    (logits (B/dp, S, V/tp) — V whole where the vocabulary is not split —
+    None, aux)."""
+    from torch.utils.checkpoint import checkpoint
+    check_train_policy(cfg, policy)
+    specs = train_param_specs(cfg, policy)
+    ax, fs = policy.model_axis, fsdp_axes(policy)
+    tp = policy.model_size
+    dtype = DTYPES[cfg.dtype]
+    with region(policy):
+        vocab = _vocab_split(specs, cfg, policy)
+        if "embeds" in batch:
+            x = seq_scatter(batch["embeds"].to(dtype), ax, False)
+            B, S = batch["embeds"].shape[:2]
+        else:
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            table = gather_block(params["embed"], specs["embed"], fs)
+            if vocab:
+                lo = prim.axis_index(ax) * table.shape[0]
+                local = tokens - lo
+                keep = (local >= 0) & (local < table.shape[0])
+                rows = embed_lookup(table, torch.where(keep, local, 0))
+                x = seq_scatter(rows * keep[..., None].to(rows.dtype), ax,
+                                True)
+            else:
+                x = seq_scatter(embed_lookup(table, tokens), ax, False)
+            x = x.to(dtype)
+        if S % tp:
+            raise ValueError(f"sequence length {S} not divisible by the "
+                             f"model axis's size {tp}")
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
+        blk_specs = {k: P(*tuple(v)[1:])
+                     for k, v in subtree(specs, "blocks").items()}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def run(x, *leaves):
+            p_blk = dict(zip(layers, leaves))
+            return superblock_apply_sp(p_blk, blk_specs, x, cfg, policy,
+                                       positions=positions, fsdp_axes=fs)
+
+        for s in range(cfg.num_layers // cfg.block_period):
+            leaves = [v[s] for v in layers.values()]
+            if cfg.remat:
+                x, aux_s = checkpoint(run, x, *leaves, use_reentrant=False)
+            else:
+                x, aux_s = run(x, *leaves)
+            aux = aux + aux_s
+        x = seq_gather(rmsnorm(x, params["norm_final"]), ax)
+        if cfg.tie_embeddings:
+            logits = x @ gather_block(params["embed"], specs["embed"], fs).T
+        else:
+            logits = x @ gather_block(params["lm_head"], specs["lm_head"], fs)
+    return logits, None, aux
 
 
 def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
@@ -388,10 +554,17 @@ def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
     place.  ``aux_loss`` is the MoE load-balance loss summed over the
     layers (fp32; 0 without MoE).
 
-    ``policy`` in train mode (every rank of its mesh calling with the same
-    global batch): each sublayer runs as ``sublayer_apply`` runs it with a
-    policy.  Under a live ctx axis the regions cut the sequence and the
-    global positions together, and attention rings over the axis.
+    ``policy`` in train mode with ``fsdp`` or ``seq_shard`` on and no
+    ctx, ep or pipe axis (``blocks.is_sp_policy``; ``Policy(mesh)``): one
+    rank of the policy train program (``_forward_sp``): ``params`` are
+    this rank's blocks and ``batch`` its rows, and the logits come back
+    as its rows' vocabulary block.
+
+    Any other ``policy`` in train mode (every rank of its mesh calling
+    with the same global batch): each sublayer runs as
+    ``sublayer_apply`` runs it with a policy.  Under a live ctx axis the
+    regions cut the sequence and the global positions together, and
+    attention rings over the axis.
 
     ``policy`` in prefill and decode is sharded serving over its (data,
     model) mesh (``blocks.check_serve_policy``), every rank calling
@@ -402,6 +575,8 @@ def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
     runs feature-sharded over the model axis, as the TP train sublayer's,
     and is gathered whole for the final norm and the head.
     """
+    if mode == "train" and is_sp_policy(policy):
+        return _forward_sp(params, batch, cfg, policy)
     serving = policy is not None and mode != "train"
     if serving:
         check_serve_policy(cfg, policy)

@@ -56,7 +56,8 @@ from repro_torch.core.compile import dist_jit
 from repro_torch.core.linop import AllToAll, CapacityRestrict
 from repro_torch.core.linop import PartitionSpec as P
 
-from .common import dense_init, mlp_apply, mlp_init, normal_init, subtree
+from .common import (dense_init, mlp_apply, mlp_apply_sp, mlp_init,
+                     normal_init, spec_names, subtree)
 
 EXPERT_LEAVES = ("we_up", "we_gate", "we_down")
 
@@ -291,6 +292,31 @@ def moe_serve_body(h, p, cfg, policy):
     if cfg.num_shared_experts:
         y = y + mlp_apply(x, subtree(p, "shared"), "swiglu")
     return prim.reduce_scatter(y, ax, 2)
+
+
+def moe_apply_sp(h, p, specs, cfg, policy, fsdp_axes):
+    """The MoE FFN of the policy train program on this rank
+    (``models.forward`` under a policy with ``seq_shard``): the body of the
+    reference's ``moe_apply`` region on the tokens this rank holds.
+
+    h: (B/dp, S/tp, d), the normed residual's sequence shard: the tokens of
+    the reference's region boundary ``P(batch, seq, None)``, so routing
+    and the capacity are over them, as there.  ``p``: the router (whole),
+    this rank's E/tp experts (the EP-over-model overload of "experts")
+    with their d_model dim over the fsdp axes, gathered inside
+    (``moe_block_fn``), and the shared experts' blocks, run as the dense
+    FFN (``mlp_apply_sp``).  The load-balance loss is the mean over every
+    mesh axis of each rank's statistic, the reference's.  Returns (y on
+    the sequence shard, aux)."""
+    fsdp = any(spec_names(specs["we_up"], 1, a) for a in fsdp_axes)
+    y, aux = moe_block_fn(h, {k: p[k] for k in ("router",) + EXPERT_LEAVES},
+                          cfg, ep_axis=policy.model_axis,
+                          fsdp_axes=fsdp_axes if fsdp else (), fsdp=fsdp,
+                          all_axes=tuple(policy.axis_names))
+    if cfg.num_shared_experts:
+        y = y + mlp_apply_sp(h, subtree(p, "shared"), subtree(specs, "shared"),
+                             "swiglu", policy, fsdp_axes)
+    return y, aux
 
 
 def moe_apply(x, p, cfg, policy=None):

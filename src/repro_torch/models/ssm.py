@@ -29,7 +29,8 @@ from repro_torch.core import primitives as prim
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-exported)
 
-from .common import dense_init, normal_init, rmsnorm, rmsnorm_sharded
+from .common import (dense_init, gather_block, normal_init, rmsnorm,
+                     rmsnorm_sharded, seq_gather, seq_scatter)
 
 
 def ssm_init(cfg, dtype, generator, stacked: int = 0) -> dict:
@@ -184,3 +185,43 @@ def ssm_block_tp(p, h, cfg, policy, *, mode, cache, index: int = 0):
     conv.copy_(new_conv)
     ssm.copy_(h_new)
     return L.affine_scatter(y, p["out_proj"], axis=ax)
+
+
+def ssm_block_sp(p, specs, h, cfg, policy, *, fsdp_axes):
+    """The Mamba2 sub-layer of the policy train program on this rank
+    (``models.forward`` under a policy with ``seq_shard``), on its SSM
+    heads: the reference's ``param_spec`` split (in_z, in_x, in_dt,
+    conv_w and the per-head vectors over ``model``, out_proj by rows,
+    in_B and in_C on the fsdp axes only), each weight gathered over the
+    fsdp axes right before its use.
+
+    h: (B/dp, S/tp, d), the normed residual's sequence shard.  The
+    sequence is gathered whole (the conv and the scan run over all of it,
+    on this rank's d_inner/tp channels and H/tp heads, through
+    ``ops.ssd_scan``); B and C come from the whole in_B and in_C, the same
+    on every model rank; the gated norm's mean of squares is over the
+    global d_inner (``rmsnorm_sharded``; the kernel when the model axis
+    has one rank); out_proj's row block reduce-scatters the partial
+    output back onto the sequence shard."""
+    ax = policy.model_axis
+    tp = policy.model_size
+    nh, pd = cfg.ssm_heads // tp, cfg.ssm_head_dim
+    x = seq_gather(h, ax)
+
+    def proj(name):
+        return x @ gather_block(p[name], specs[name], fsdp_axes)
+
+    z, xs, Bm, Cm, dt = (proj(n) for n in ("in_z", "in_x", "in_B", "in_C",
+                                           "in_dt"))
+    xs, _ = causal_conv1d(xs, p["conv_w"])
+    xs = F.silu(xs)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a_neg = -torch.exp(p["a_log"])
+    xh = xs.reshape(xs.shape[0], xs.shape[1], nh, pd)
+    y, _ = ops.ssd_scan(xh, dt, a_neg, Bm, Cm, chunk=min(64, xs.shape[1]))
+    y = y + (p["d_skip"][None, None, :, None] * xh.float()).to(y.dtype)
+    y = y.reshape(xs.shape) * F.silu(z)
+    y = (rmsnorm_sharded(y, p["ssm_norm"], ax) if tp > 1
+         else rmsnorm(y, p["ssm_norm"]))
+    y = y @ gather_block(p["out_proj"], specs["out_proj"], fsdp_axes)
+    return seq_scatter(y, ax, tp > 1)

@@ -27,9 +27,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import math
+
 import numpy as np
 import torch
 
+from repro_torch.core import primitives as prim
 from repro_torch.tree import tree_leaves, tree_map
 
 f32 = np.float32
@@ -123,7 +126,7 @@ class AdamW:
                 "count": 0}
 
     @torch.no_grad()
-    def update(self, grads, state, params, scale=None):
+    def update(self, grads, state, params, scale=None, **_):
         """Write the step into ``params`` and the moments of ``state`` in
         place; returns ``(params, new state)``.  ``scale``: optional scalar
         (a 0-d tensor) folded into the fp32 grad cast, so the caller clips
@@ -176,22 +179,44 @@ class Adafactor:
                 "count": 0}
 
     @torch.no_grad()
-    def update(self, grads, state, params, scale=None):
-        """As ``AdamW.update``: in place, returns ``(params, new state)``."""
+    def update(self, grads, state, params, scale=None, splits=None,
+               mesh=None):
+        """As ``AdamW.update``: in place, returns ``(params, new state)``.
+
+        ``splits`` (with ``mesh``): for each leaf held as this rank's block
+        of a sharded parameter (the policy train program), the mesh axes
+        that split each of its dims.  The factored statistics' means over
+        a split dim and the update's rms are then sums all-reduced over
+        those axes, divided by the global size, so each rank's block gets
+        the global statistics."""
         count = state["count"] + 1
         lr = self.lr(count)
         d = self.decay
         for name, p in params.items():
+            split = (splits or {}).get(name) or ((),) * p.ndim
+
+            def mean(x, dim, axes):
+                """``x.mean(dim)`` over the global dim (``dim`` None: over
+                every element), the dim split over ``axes``."""
+                if not axes:
+                    return x.mean() if dim is None else x.mean(dim=dim)
+                s = x.sum() if dim is None else x.sum(dim=dim)
+                with prim.use_mesh(mesh):
+                    prim.psum_([s], axes)
+                n = x.numel() if dim is None else x.shape[dim]
+                return s / (n * math.prod(prim.axis_size(a) for a in axes))
+
             g32 = grads[name].float()
             if scale is not None:
                 g32 = g32 * scale
             m, v = state["m"][name], state["v"][name]
             g2 = g32 * g32 + self.eps
             if p.ndim >= 2:
-                vr = v["vr"] * d + g2.mean(dim=-1) * (1 - d)
-                vc = v["vc"] * d + g2.mean(dim=-2) * (1 - d)
+                vr = v["vr"] * d + mean(g2, -1, split[-1]) * (1 - d)
+                vc = v["vc"] * d + mean(g2, -2, split[-2]) * (1 - d)
                 denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
+                         / torch.clamp(mean(vr, -1, split[-2])[..., None,
+                                                               None],
                                        min=self.eps))
                 prec = torch.rsqrt(torch.clamp(denom, min=self.eps))
                 new_v = {"vr": vr, "vc": vc}
@@ -201,7 +226,8 @@ class Adafactor:
                 new_v = {"v": vv}
             u = g32 * prec
             # clip update rms to 1 (adafactor stability)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+            every = tuple(dict.fromkeys(a for axes in split for a in axes))
+            rms = torch.sqrt(mean(u * u, None, every) + 1e-12)
             u = u / torch.clamp(rms, min=1.0)
             m32 = m.float() * self.b1 + u * (1 - self.b1)
             step = m32

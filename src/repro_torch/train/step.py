@@ -29,11 +29,14 @@ all-reduce; the host reads it, and every rank takes the same branch.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import primitives as prim
 from repro_torch.core.compile import local_blocks, region, resolve_parts
 from repro_torch.models import forward
+from repro_torch.models.common import spec_axes
 from repro_torch.models.model import DTYPES
 from repro_torch.optim.optimizers import global_norm
 from repro_torch.resilience.guard import (HOST_FAULT, apply_guard,
@@ -42,19 +45,50 @@ from repro_torch.resilience.guard import (HOST_FAULT, apply_guard,
 from repro_torch.sharding import Partitioned
 
 
-def cross_entropy(logits, labels, z_loss: float = 1e-4):
-    """Mean token cross-entropy in fp32 (+ z-loss on the partition fn)."""
+def cross_entropy(logits, labels, z_loss: float = 1e-4, *, vocab_axis=None):
+    """Mean token cross-entropy in fp32 (+ z-loss on the partition fn).
+
+    ``vocab_axis`` (inside a region): ``logits`` are this rank's block of
+    the vocabulary over that mesh axis, as the reference constrains them
+    (``repro/models/model.py:291``).  The max (no gradient: the
+    log-sum-exp does not depend on it), the sum of exponentials and the
+    label's logit are each all-reduced over the axis, so the whole logits
+    never exist on one rank; the result is replicated over the axis."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if vocab_axis is None or prim.axis_size(vocab_axis) == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        V = logits.shape[-1]
+        m = prim.pmax(logits.detach().amax(dim=-1), vocab_axis)
+        lse = m + torch.log(prim.all_reduce(
+            torch.exp(logits - m[..., None]).sum(dim=-1), vocab_axis))
+        local = labels - prim.axis_index(vocab_axis) * V
+        keep = (local >= 0) & (local < V)
+        ll = torch.gather(logits, -1,
+                          torch.where(keep, local, 0)[..., None])[..., 0]
+        ll = prim.all_reduce(torch.where(keep, ll, 0.0), vocab_axis)
     nll = (lse - ll).mean()
     return nll + z_loss * (lse ** 2).mean(), nll
 
 
-def build_loss_fn(cfg, aux_weight: float = 0.01):
+def build_loss_fn(cfg, aux_weight: float = 0.01, policy=None):
+    """``policy``: a policy of the policy train program
+    (``models.blocks.is_sp_policy``); ``params`` and ``batch`` are then
+    this rank's blocks and rows, and the loss (replicated over the model
+    axis) is over this rank's rows, the cross-entropy vocab-parallel.
+    Call it inside ``region(policy)``."""
+    vocab_axis = None
+    if policy is not None:
+        from repro_torch.models.model import _vocab_split, train_param_specs
+        if _vocab_split(train_param_specs(cfg, policy), cfg, policy):
+            vocab_axis = policy.model_axis
+
     def loss_fn(params, batch):
-        logits, _, aux = forward(params, batch, cfg, mode="train")
-        loss, nll = cross_entropy(logits, batch["labels"])
+        logits, _, aux = forward(params, batch, cfg, mode="train",
+                                 policy=policy)
+        loss, nll = cross_entropy(logits, batch["labels"],
+                                  vocab_axis=vocab_axis)
         total = loss + aux_weight * aux
         return total, {"nll": nll, "aux": aux}
     return loss_fn
@@ -81,10 +115,10 @@ def loss_and_grads(loss_fn, params, batch):
             dict(zip(leaves, grads)))
 
 
-def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
+def build_train_step(cfg, optimizer, *, policy=None, aux_weight: float = 0.01,
                      max_grad_norm: float = 1.0, grad_compress: bool = False,
                      accum_dtype=None, nonfinite_guard: bool = True,
-                     fault_hook=None):
+                     fault_hook=None, phase_hook=None):
     """``accum_dtype``: name of the microbatch gradient accumulator's dtype
     (default ``cfg.accum_dtype``), used when ``cfg.grad_accum > 1``.
 
@@ -92,7 +126,26 @@ def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
     non-finite the update does not run: params and moments stay bitwise
     unchanged, ``skipped_steps`` increments, ``step`` still advances.
     ``fault_hook`` (``grads -> grads``) is the injection point for tests.
-    The state's params are updated in place on a clean step."""
+    The state's params are updated in place on a clean step.
+
+    ``policy`` with ``fsdp`` or ``seq_shard`` on (``Policy(mesh)``, the
+    reference's default): the step is one rank of the policy train
+    program, ``_build_sp_train_step``, and ``phase_hook(kind)`` is called
+    with "forward", "backward" and "optimizer" as each part starts (the
+    chip phase's CUDA events); without one, the one-device step below."""
+    if phase_hook is not None and policy is None:
+        raise ValueError("phase_hook instruments the policy train program")
+    if policy is not None:
+        from repro_torch.models.blocks import is_sp_policy
+        if not is_sp_policy(policy):
+            raise ValueError("build_train_step(policy=) runs the policy "
+                             "train program: a policy with fsdp or "
+                             "seq_shard on and no ctx, ep or pipe axis")
+        return _build_sp_train_step(
+            cfg, optimizer, policy, aux_weight=aux_weight,
+            max_grad_norm=max_grad_norm, grad_compress=grad_compress,
+            accum_dtype=accum_dtype, nonfinite_guard=nonfinite_guard,
+            fault_hook=fault_hook, phase_hook=phase_hook)
     loss_fn = build_loss_fn(cfg, aux_weight)
     accum = max(cfg.grad_accum, 1)
     accum_dtype = DTYPES[accum_dtype or cfg.accum_dtype]
@@ -147,6 +200,190 @@ def build_train_step(cfg, optimizer, *, aux_weight: float = 0.01,
                                                    params, scale=scale)
             new_state = {"params": new_params, "opt": new_opt,
                          "step": state["step"] + 1}
+        return new_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The policy train program: the reference's GSPMD ``build_train_step`` under
+# ``Policy(mesh)`` (ZeRO-3 over the fsdp axes, tensor and sequence
+# parallelism over ``model``) as one explicit per-rank program.
+# ---------------------------------------------------------------------------
+
+def sp_state_parts(cfg, policy, optimizer=None) -> dict:
+    """``{name: PartitionSpec}`` of this program's train state, the
+    ``parts`` a checkpoint records and restores each rank's blocks by:
+    every parameter's ``train_param_specs`` spec (its moments take it
+    too), and for Adafactor the factored statistics' (``<name>.vr`` the
+    spec without its last dim, ``<name>.vc`` without its second last,
+    ``<name>.v`` of a vector the vector's)."""
+    from repro_torch.models.model import train_param_specs
+    from repro_torch.optim.optimizers import Adafactor
+    specs = train_param_specs(cfg, policy)
+    if isinstance(optimizer, Adafactor):
+        from repro_torch.core.linop import PartitionSpec as P
+        for k, spec in list(specs.items()):
+            e = tuple(spec)
+            if len(e) >= 2:
+                specs[f"{k}.vr"] = P(*e[:-1])
+                specs[f"{k}.vc"] = P(*(e[:-2] + e[-1:]))
+            else:
+                specs[f"{k}.v"] = spec
+    return specs
+
+
+def _sp_layout(cfg, policy):
+    """Per leaf: the live mesh axes its spec leaves it whole over (its
+    gradient is a per-rank contribution there, summed after the
+    backward), 1 / the product of their sizes (its weight in the global
+    norm, so every element counts once), and the live axes splitting
+    each dim (Adafactor's factored statistics)."""
+    from repro_torch.models.model import train_param_specs
+    live = [a for a in policy.axis_names if policy.axis_size(a) > 1]
+    whole, weights, dims = {}, {}, {}
+    for key, spec in train_param_specs(cfg, policy).items():
+        named = {a for e in spec for a in spec_axes(e)}
+        whole[key] = tuple(a for a in live if a not in named)
+        weights[key] = 1.0 / math.prod(policy.axis_size(a)
+                                       for a in whole[key])
+        dims[key] = tuple(tuple(a for a in spec_axes(e) if a in live)
+                          for e in spec)
+    return whole, weights, dims
+
+
+def _sum_contributions(grads, whole):
+    """Each gradient summed over the axes its leaf is whole over, in
+    place: one all-reduce per (axes, dtype) bucket of leaves."""
+    buckets = {}
+    for k, g in grads.items():
+        if whole[k]:
+            buckets.setdefault((whole[k], g.dtype), []).append(k)
+    for (axes, _), keys in buckets.items():
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        prim.psum_([flat], axes)
+        for k, part in zip(keys, flat.split([grads[k].numel()
+                                             for k in keys])):
+            grads[k] = part.view_as(grads[k])
+
+
+def _build_sp_train_step(cfg, optimizer, policy, *, aux_weight,
+                         max_grad_norm, grad_compress, accum_dtype,
+                         nonfinite_guard, fault_hook, phase_hook):
+    """One rank of the policy train program over ``policy.mesh`` ((data,
+    model), or (pod, data, model)); every rank calls the step with the
+    same GLOBAL batch and cuts its own rows (over ``batch``: pod and
+    data).
+
+    ``state["params"]`` holds this rank's blocks (``models.
+    shard_train_params`` / ``init_rank_train_params``) and the optimizer
+    moments match them.  Each microbatch of ``cfg.grad_accum`` (the
+    reference's scan: microbatch i is rows i*B/accum.. of the global
+    batch) runs ``forward`` on this rank's rows (``models.model.
+    _forward_sp``) and the vocab-parallel cross-entropy.  The loss, the
+    same on every rank, seeds each rank's backward with 1 / (mesh size),
+    the cotangent convention of a region (``core/compile.py``), so the
+    ZeRO-3 gathers' reduce-scatters land the gradient of each block, and
+    the gradient of a leaf left whole over an axis is a contribution,
+    summed over it after the backward (``_sum_contributions``).  Then the
+    global-norm clip (each rank's sum of squares weighted so every
+    element counts once, ONE all-reduce over the mesh), the guard's
+    one-bit max all-reduce over the mesh (``fault=True`` sends
+    ``HOST_FAULT``, as ``build_hybrid_train_step``), and the optimizer
+    update of this rank's blocks in place (Adafactor's factored
+    statistics summed over the axes that split their dims).  Raises
+    ``ValueError`` when the batch does not divide by grad_accum x the data
+    axes' size or the sequence by the model axis's."""
+    from repro_torch.models.blocks import check_train_policy
+    from repro_torch.optim.optimizers import Adafactor
+    check_train_policy(cfg, policy)
+    loss_fn = build_loss_fn(cfg, aux_weight, policy=policy)
+    accum = max(cfg.grad_accum, 1)
+    accum_dtype = DTYPES[accum_dtype or cfg.accum_dtype]
+    whole, weights, dims = _sp_layout(cfg, policy)
+    world = math.prod(policy.axis_size(a) for a in policy.axis_names)
+    dp = policy.dp_size
+    data_axes = spec_axes(policy.phys("batch"))
+    rows_part = Partitioned("batch")
+    hook = phase_hook or (lambda kind: None)
+    opt_kw = ({"splits": dims, "mesh": policy.mesh}
+              if isinstance(optimizer, Adafactor) else {})
+
+    def rank_grads(params, rows):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with region(policy):
+            hook("forward")
+            total, met = loss_fn(leaves, rows)
+            hook("backward")
+            # a stub frontend's batch never reads ``embed``: zero grads,
+            # as the reference's
+            grads = torch.autograd.grad(total / world, list(leaves.values()),
+                                        allow_unused=True)
+        return (total.detach(), {k: v.detach() for k, v in met.items()},
+                {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(leaves.items(), grads)})
+
+    def train_step(state, batch, fault=False):
+        params = state["params"]
+        device = next(iter(params.values())).device
+        batch = batch_to_device(batch, device)
+        B = batch["labels"].shape[0]
+        if B % (accum * dp):
+            raise ValueError(f"global batch {B} not divisible by grad_accum "
+                             f"x the data axes' size = {accum} x {dp}")
+        mets, grads = [], None
+        for i in range(accum):
+            mb = {k: x[i * B // accum:(i + 1) * B // accum]
+                  for k, x in batch.items()}
+            rows = local_blocks(rows_part, mb, policy)
+            total, met, g = rank_grads(params, rows)
+            met["loss"] = total
+            mets.append(met)
+            if accum == 1:
+                grads = g
+            elif grads is None:
+                grads = {k: v.to(accum_dtype) for k, v in g.items()}
+            else:
+                for k, v in g.items():
+                    grads[k] += v.to(accum_dtype)
+        if accum > 1:
+            grads = {k: g / accum for k, g in grads.items()}
+        hook("optimizer")
+        with prim.use_mesh(policy.mesh):
+            _sum_contributions(grads, whole)
+            # the loss and nll are each data replica's: their mean over
+            # the replicas is the global value (aux is global already)
+            metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}
+            pair = torch.stack([metrics["loss"], metrics["nll"]])
+            prim.psum_([pair], data_axes)
+            metrics["loss"], metrics["nll"] = pair / dp
+            if grad_compress:
+                grads = {k: g.to(torch.bfloat16).float()
+                         for k, g in grads.items()}
+            if fault_hook is not None:
+                grads = fault_hook(grads)
+            sq = sum(torch.sum(torch.square(g.float())) * weights[k]
+                     for k, g in grads.items())
+            gnorm = torch.sqrt(prim.mesh_all_reduce_(sq))
+            scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            metrics["grad_norm"] = gnorm
+            flag = nonfinite_flag((metrics["loss"], grads))
+            if fault:
+                flag = torch.full_like(flag, HOST_FAULT)
+            if nonfinite_guard or fault:
+                flag = host_flag(prim.mesh_all_reduce_(flag, "max"))
+            else:
+                flag = 0
+            new_params, new_opt = params, state["opt"]
+            if not flag:
+                new_params, new_opt = optimizer.update(
+                    grads, state["opt"], params, scale=scale, **opt_kw)
+        new_state = apply_guard(flag, state, new_params, new_opt)
+        metrics["skipped"] = min(flag, 1)
+        if flag >= HOST_FAULT:
+            metrics["fault"] = 1
         return new_state, metrics
 
     return train_step

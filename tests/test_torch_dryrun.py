@@ -68,10 +68,52 @@ def test_glm4_decode_32k_writes_every_key(tmp_path, monkeypatch):
 
 
 def test_a_refused_cell_is_written_with_the_ports_message():
-    res = dryrun.lower_cell("mamba2-370m", "train_4k", verbose=False)
-    assert res["refused"].startswith("NotImplementedError: pipeline cut")
+    """phi4-mini's 24 query heads do not divide over the model axis's 16:
+    the policy train program refuses the cell by that width (mamba2-370m's
+    ``train_4k``, refused by the pipeline cut before, is traced now)."""
+    res = dryrun.lower_cell("phi4-mini-3.8b", "train_4k", verbose=False)
+    assert res["refused"].startswith(
+        "NotImplementedError: the policy train program")
+    assert "'num_heads': 24" in res["refused"]
     assert REFERENCE_KEYS | {"program", "fits", "source"} <= set(res)
     assert res["roofline"] is None and not dist.is_initialized()
+
+
+def test_glm4_train_4k_is_traced_under_zero3():
+    """glm4-9b's ``train_4k`` at 16 x 16 runs the policy train program:
+    each rank's parameters and moments (the trace's arguments) are 1/256
+    of every leaf that (data, model) divides, plus the leaves the policy
+    leaves whole on some axis, counted at their blocks; the peak is below
+    the same state held whole."""
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.model import train_param_specs
+    res = dryrun.lower_cell("glm4-9b", "train_4k", verbose=False)
+    assert res["refused"] is None and "ZeRO-3" in res["program"]
+    assert res["kernel_calls"] == {"flash_attention": 80, "rmsnorm": 161}
+    launch_mesh.init_fake_world(0, 256)
+    try:
+        pol = dryrun.make_policy(launch_mesh.make_production_mesh(
+            device="meta"))
+        specs = train_param_specs(get_config("glm4-9b"), pol)
+    finally:
+        dist.destroy_process_group()
+    # bf16 parameters and fp32 AdamW moments: 10 bytes an element
+    full = mine = whole = 0
+    for k, v in param_specs(get_config("glm4-9b")).items():
+        k_bytes = v.numel() * (v.element_size() + 8)
+        n = 1
+        for e in specs[k]:
+            for a in ((e,) if isinstance(e, str) else e or ()):
+                n *= 16
+        full += k_bytes
+        mine += k_bytes // n
+        if n == 1:
+            assert "norm" in k, k      # only the norm weights stay whole
+            whole += k_bytes
+    got = res["memory"]["argument_GiB"] * 2**30
+    assert got == mine
+    assert 0 <= got - full / 256 <= whole
+    assert res["memory"]["peak_per_device_GiB"] * 2**30 < full
 
 
 def test_meta_route_refuses_what_the_card_refuses():

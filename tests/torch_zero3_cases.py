@@ -1,0 +1,82 @@
+"""Cases shared by the port's policy-train-program parity test
+(``test_torch_zero3_md.py``) and its JAX side (``torch_zero3_jax.py``):
+the reference's GSPMD ``build_train_step(cfg, Policy(mesh), opt)`` (ZeRO-3
+over ``data``, tensor and sequence parallelism over ``model``) on reduced
+configs over (data, model) meshes of 8 host devices.  No JAX and no torch
+here: the port's ranks and the JAX child both import it.
+
+The JAX child draws the reference's parameters of each arch
+(``init_params(cfg, PRNGKey(PARAMS_SEED))``) and writes them first
+(``torch_region_cases.params_path``), so the port's ranks start while it
+runs the cases.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+PARAMS_SEED = 0
+BATCH, SEQ = 8, 16
+LR, TOTAL_STEPS = 1e-3, 10
+
+# arch -> depth (None: reduced()'s own).  reduced glm4-9b: 4 query heads
+# and 2 K/V heads, so model = 4 does not divide its K/V heads; kimi-k2
+# (MoE, Adafactor) cut to one block period; mamba2-370m (SSM, tied
+# embeddings) at reduced()'s 2 layers.
+ARCHS = {"glm4-9b": None, "kimi-k2-1t-a32b": 1, "mamba2-370m": None}
+
+# name -> (arch, (data, model)) of the port's cases
+CASES = {
+    "glm_dp2_tp4": ("glm4-9b", (2, 4)),
+    "glm_dp4_tp2": ("glm4-9b", (4, 2)),
+    "glm_dp8_tp1": ("glm4-9b", (8, 1)),
+    "kimi_dp2_tp4": ("kimi-k2-1t-a32b", (2, 4)),
+    "mamba_dp2_tp4": ("mamba2-370m", (2, 4)),
+}
+# The reference runs on (2, 4) only, in three JAX children side by side (a
+# jitted program a mesh is most of this file's time): its GSPMD step
+# computes global values, the same on every mesh to fp32 rounding (on
+# these cases its losses at (2, 4), (4, 2) and (8, 1) agree to 7e-8 and
+# its grad norms to 1e-7 relative), so each glm4-9b mesh of the port is
+# held to the reference's (2, 4) run, whose gradients are also written
+# (GRADS_CASE).
+REFERENCE = {"glm_dp2_tp4": "glm_dp2_tp4", "glm_dp4_tp2": "glm_dp2_tp4",
+             "glm_dp8_tp1": "glm_dp2_tp4", "kimi_dp2_tp4": "kimi_dp2_tp4",
+             "mamba_dp2_tp4": "mamba_dp2_tp4"}
+CHILDREN = {"glm": ("glm_dp2_tp4",), "mamba": ("mamba_dp2_tp4",),
+            "kimi": ("kimi_dp2_tp4",)}
+GRADS_CASE = "glm_dp2_tp4"
+CKPT_CASE = "glm_dp2_tp4"
+
+# the pins: tests/md/test_hybrid.py's for the gradients, 2e-5 for the loss
+LOSS_RTOL = 2e-5
+GRAD_TOL = 5e-4
+
+
+def batches(vocab: int) -> list:
+    """The two steps' global batches, ``{"tokens", "labels"}`` int32."""
+    rng = np.random.default_rng(7)
+    return [{k: rng.integers(0, vocab, (BATCH, SEQ), dtype=np.int32)
+             for k in ("tokens", "labels")} for _ in range(2)]
+
+
+def child_path(out_path, which: str) -> str:
+    return f"{out_path}.{which}.npz"
+
+
+def start_jax(out_path, which: str):
+    """Start ``torch_zero3_jax.py`` for the cases of ``CHILDREN[which]``
+    on 8 host devices in a child interpreter (the main pytest process
+    must see one device); it writes ``child_path(out_path, which)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    return subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_zero3_jax.py"), which,
+         child_path(out_path, which)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)

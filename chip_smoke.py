@@ -13,7 +13,8 @@ through checkpoints, injected faults and a mesh shrink; mamba2-370m is
 trained at all 48 layers; and the dry run's predictions (kernel calls,
 peak memory, bound time, traced on ``meta``) are held against three of
 those cells; glm4-9b is also trained by the reference's production step
-(ZeRO-3 over data, TP/SP over model) at mesh (1, 1).
+(ZeRO-3 over data, TP/SP over model) at mesh (1, 1), and phi3-medium-14b
+at (1, 3) where three cards exist, its 40 query heads split 14, 13, 13.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -262,6 +263,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (2, 2), B 8, S 1024, 5 steps, the 2-layer fp32 parity at (2, 2), each
    mesh's peak within 2% of ``launch.dryrun.mesh_cell``'s prediction.
    One line ``{"zero3": {...}}`` (``{"zero3_mesh": ...}`` a 4-card mesh).
+20. uneven_heads: query heads the model axis does not divide, split by
+   the paper's balanced decomposition (``models.attention.head_block``).
+   (a) the bf16 flash kernel at every per-rank shape that TP 16 gives
+   llama4-maverick-400b-a17b and phi3-medium-14b (40 heads: 3 and 2 a
+   rank), phi4-mini-3.8b and musicgen-medium (24: 2 and 1), B 4, S 1024,
+   causal, K/V laid out as ``_kv_of_local_heads`` gives them, against
+   its plain version at phase 2's bf16 pin, each timed beside the plain
+   version, SDPA and its bound.  (b) where three cards exist
+   (``tools/uneven_heads_phase_torch.py`` on a 4-card machine):
+   phi3-medium-14b at (data, model) = (1, 3), 14, 13 and 13 query heads,
+   on three NCCL ranks: the 2-layer fp32 parity against one card's step
+   at PARITY_TOL, then 5 bf16 steps of 8 layers (B 4, S 1536) from the
+   per-rank initialiser, every rank's losses equal and finite, each
+   rank's peak within 2% of ``launch.dryrun.mesh_cell`` traced as that
+   rank, its kernel launches and its collectives a step (count and
+   bytes) equal to the trace's.  One line ``{"uneven_heads": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -316,7 +333,8 @@ from repro_torch.models import (forward,  # noqa: E402
                                 init_params, init_pipeline_params,
                                 init_rank_params, moe, shard_params)
 from repro_torch.models.attention import (attention_block,  # noqa: E402
-                                          attn_init)
+                                          attn_init, head_block,
+                                          local_kv_heads)
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models.blocks import (sublayer_apply,  # noqa: E402
                                        sublayer_init)
@@ -3951,16 +3969,17 @@ def zero3_launches(cfg, steps):
             "ssd_scan": 0}
 
 
-def zero3_parity(policy, tol):
-    """glm4-9b at full width cut to 2 layers, fp32: the policy step's loss
-    and every gradient leaf (gathered from the blocks) against
-    ``loss_and_grads`` of the loss without a policy on the same
-    parameters (``init_params`` on this card, the same on every rank).
-    Returns the errors' shares of each leaf's scale and the launches."""
-    cfg = dataclasses.replace(get_config(GLM),
-                              num_layers=ZERO3["parity_layers"],
+def zero3_parity(policy, tol, arch, cut):
+    """``arch`` at full width cut to ``cut``'s parity layers (2), fp32:
+    the policy step's loss and every gradient leaf (gathered from the
+    blocks) against ``loss_and_grads`` of the loss without a policy on
+    the same parameters (``init_params`` on this card, the same on every
+    rank).  Returns the errors' shares of each leaf's scale and the
+    launches."""
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=cut["parity_layers"],
                               dtype="float32")
-    B, S = ZERO3["parity_batch"], ZERO3["parity_seq"]
+    B, S = cut["parity_batch"], cut["parity_seq"]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
                          "cuda")
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
@@ -3992,7 +4011,8 @@ def zero3_parity(policy, tol):
             shares[k] = float((full - ref_k).abs().max()
                               / ref_k.abs().max().clamp(min=1e-30))
     loss_share = abs(float(met["loss"]) - float(loss1)) / abs(float(loss1))
-    out = {"layers": cfg.num_layers, "batch": B, "seq": S, "tol": tol,
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "seq": S,
+           "tol": tol,
            "loss": float(met["loss"]), "loss_one_device": float(loss1),
            "loss_share": loss_share, "max_grad_share": max(shares.values()),
            "grad_shares": shares, "launches": snap}
@@ -4004,7 +4024,8 @@ def zero3_parity(policy, tol):
 
 
 def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
-    """Phase 19 on this rank of the (data, model) ``mesh_shape``: the fp32
+    """Phase 19 (and 20 (b)) on this rank of the (data, model)
+    ``mesh_shape``, ``run["arch"]`` (glm4-9b where absent): the fp32
     parity (``parity``), then ``run``'s bf16 steps through
     ``launch.train.train(..., mesh=)`` with the launch counts, and one
     more step split by CUDA events, its collectives tallied and its peak
@@ -4017,12 +4038,14 @@ def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
     out = {"rank": rank,
            "coordinate": dict(zip(policy.axis_names, m.get_coordinate()))}
     t0 = time.perf_counter()
+    arch = run.get("arch", GLM)
     if parity:
-        out["parity"] = zero3_parity(policy, parity_tol)
+        out["parity"] = zero3_parity(policy, parity_tol, arch,
+                                     {**ZERO3, **run})
     out["parity_seconds"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(GLM), num_layers=run["layers"])
+    cfg = dataclasses.replace(get_config(arch), num_layers=run["layers"])
     B, S, steps = run["batch"], run["seq"], run["steps"]
     logs = []
     torch.cuda.reset_peak_memory_stats()
@@ -4055,10 +4078,11 @@ def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
         timer("end")
     split = timer.split()
     torch.cuda.synchronize()
+    depth = get_config(arch).num_layers
     out["train"] = {
-        "arch": GLM, "layers": cfg.num_layers,
-        "cut": ("none" if cfg.num_layers == 40
-                else f"depth 40 -> {cfg.num_layers}"),
+        "arch": arch, "layers": cfg.num_layers,
+        "cut": ("none" if cfg.num_layers == depth
+                else f"depth {depth} -> {cfg.num_layers}"),
         "dtype": cfg.dtype, "mesh": list(mesh_shape), "batch": B, "seq": S,
         "steps": steps, "rank_init": run["rank_init"],
         "params_on_rank": sum(p.numel() for p in state["params"].values()),
@@ -4111,6 +4135,7 @@ def zero3_spawn(smi, name, mesh_shape, parity, run, parity_tol):
                      "peak_mem_bytes_run": r["train"]["peak_mem_bytes_run"],
                      "split_step_peak_bytes":
                          r["train"]["split_step_peak_bytes"],
+                     "split_step_launches": r["train"]["split_step_launches"],
                      "state_bytes_on_rank": r["train"]["state_bytes_on_rank"],
                      "split": r["train"]["split"],
                      "collectives_a_step": r["train"]["collectives_a_step"]}
@@ -4180,6 +4205,150 @@ def phase_zero3(smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: query heads the model axis does not divide, split by the paper's
+# balanced decomposition (``models.attention.head_block``).
+# ---------------------------------------------------------------------------
+
+PHI3, PHI4 = "phi3-medium-14b", "phi4-mini-3.8b"
+# (a) the four archs whose query heads the reference's sweep's model axis
+# (16) does not divide: 40, 40, 24 and 24
+UNEVEN_ARCHS = (LLAMA4, PHI3, PHI4, MUSICGEN)
+UNEVEN_TP = 16
+UNEVEN_ATTN = {"batch": 4, "seq": 1024}
+# (b) three cards: phi3-medium-14b at (data, model) = (1, 3), 14, 13 and 13
+# query heads; every leaf whole (5120, 1280, 17920 and 100352 do not divide
+# by 3); the 2-layer fp32 parity, then 5 bf16 steps of 8 layers from the
+# per-rank initialiser (the sequence divisible by 3)
+UNEVEN_MESH = (1, 3)
+UNEVEN = {"arch": PHI3, "parity_layers": 2, "parity_batch": 2,
+          "parity_seq": 258, "layers": 8, "batch": 4, "seq": 1536,
+          "steps": 5, "lr": 1e-3, "rank_init": True}
+
+
+def uneven_shapes(arch, tp=UNEVEN_TP) -> dict:
+    """``{(query heads, K/V heads): [ranks]}`` of ``arch`` over a
+    ``tp``-way model axis: each rank's block of the balanced head split
+    and the K/V heads ``local_kv_heads`` lays out for it."""
+    cfg = get_config(arch)
+    out = {}
+    for r in range(tp):
+        n = head_block(cfg.num_heads, tp, r)[1]
+        out.setdefault((n, len(local_kv_heads(cfg, tp, r))), []).append(r)
+    return out
+
+
+def uneven_kernel_checks():
+    """(a): the bf16 flash kernel at every per-rank shape of the four archs
+    at TP 16 (B 4, S 1024, causal, K/V as ``_kv_of_local_heads`` lays
+    them out) against its plain version at phase 2's bf16 pin; each timed
+    beside its plain version, SDPA and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    B, S = UNEVEN_ATTN["batch"], UNEVEN_ATTN["seq"]
+    dtype = torch.bfloat16
+    rows = []
+    for arch in UNEVEN_ARCHS:
+        hd = get_config(arch).resolved_head_dim
+        for (h, kh), ranks in sorted(uneven_shapes(arch).items(),
+                                     reverse=True):
+            q, k, v = (randn((B, S, n, hd), dtype, gen) for n in (h, kh, kh))
+            before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+            got = ops.flash_attention(q, k, v, causal=True)
+            expect_routes("flash_attention", dtype, before)
+            torch.cuda.synchronize()
+            shape = (f"q ({B},{S},{h},{hd}) k/v ({B},{S},{kh},{hd}) "
+                     f"causal")
+            err = check_close(f"flash {arch} ranks {ranks} {shape} bf16",
+                              got, ref.attention_ref(q, k, v, causal=True),
+                              FLASH_TOL[dtype])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bound = card_bound(kernel_cost("flash_attention", q.shape,
+                                           k.shape, v.shape, dtype=dtype),
+                               dtype)
+            row = dict(
+                arch=arch, ranks=ranks, shape=shape, route=ROUTES[dtype],
+                max_abs_err=err,
+                ms=cuda_ms(lambda: ops.flash_attention(q, k, v)),
+                plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v),
+                                 iters=5),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+            emit(phase="uneven_heads_kernel", **row)
+            rows.append(row)
+    return rows
+
+
+def uneven_mesh(smi):
+    """(b), three cards or more: phi3-medium-14b at (1, 3) on three NCCL
+    ranks (``zero3_spawn``): the 2-layer fp32 parity against one card's
+    step at PARITY_TOL, then 5 bf16 steps of 8 layers from the per-rank
+    initialiser, every rank's losses equal and finite.  Each rank's peak
+    of one step held within ZERO3_PEAK_TOL of ``launch.dryrun.mesh_cell``
+    traced as that rank, its launches equal to the traced kernel calls
+    and its collectives a step to the traced ones, by count and bytes.
+    Returns (the results, the launch counts by path)."""
+    run = UNEVEN
+    res, total = zero3_spawn(smi, "phi3_1x3", UNEVEN_MESH, True, run,
+                             PARITY_TOL)
+    cfg = get_config(PHI3)
+    preds, held = {}, []
+    for r in res["ranks"]:
+        me = r["coordinate"]["model"]
+        key = (head_block(cfg.num_heads, UNEVEN_MESH[1], me)[1],
+               len(local_kv_heads(cfg, UNEVEN_MESH[1], me)))
+        if key not in preds:
+            preds[key] = dryrun.mesh_cell(PHI3, run["layers"], run["batch"],
+                                          run["seq"], UNEVEN_MESH, rank=me)
+        pred = preds[key]
+        peak = pred["memory"]["peak_per_device_GiB"] * 2**30
+        card = r["split_step_peak_bytes"]
+        coll = {k: pred["collectives"][k] for k in ("counts", "bytes")}
+        calls = {k: v for k, v in r["split_step_launches"]["launches"].items()
+                 if v}
+        held.append({"rank": r["rank"], "query_heads": key[0],
+                     "kv_heads_attended": key[1],
+                     "predicted_peak_bytes": peak, "card_peak_bytes": card,
+                     "peak_ratio": peak / card,
+                     "kernel_calls": pred["kernel_calls"],
+                     "card_launches_a_step": calls,
+                     "collectives": coll,
+                     "card_collectives": r["collectives_a_step"],
+                     "roofline": pred["roofline"],
+                     "trace_s": pred["trace_s"]})
+        if pred["kernel_calls"] != calls:
+            raise AssertionError(f"uneven heads rank {r['rank']}: dry run "
+                                 f"calls {pred['kernel_calls']}, card {calls}")
+        if coll != r["collectives_a_step"]:
+            raise AssertionError(f"uneven heads rank {r['rank']}: dry run "
+                                 f"collectives {coll}, card "
+                                 f"{r['collectives_a_step']}")
+        if abs(peak / card - 1) > ZERO3_PEAK_TOL:
+            raise AssertionError(f"uneven heads rank {r['rank']}: predicted "
+                                 f"peak {peak} B, card {card} B")
+    res["dryrun"] = held
+    paths = {f"uneven heads bf16 {UNEVEN_MESH} {PHI3}": total,
+             f"uneven heads parity fp32 {UNEVEN_MESH} {PHI3}":
+                 res["parity"]["launches"]}
+    return res, paths
+
+
+def phase_uneven_heads(smi):
+    """Phase 20, ``uneven_heads``: (a) the flash kernel at every 16-way
+    rank shape of the four archs on one card; (b) phi3-medium-14b at
+    (1, 3) where three cards exist (``uneven_mesh``).  Prints
+    ``{"uneven_heads": ...}``; returns the launch counts by path."""
+    t0 = time.perf_counter()
+    out = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "tp": UNEVEN_TP, "kernels": uneven_kernel_checks()}
+    paths = {}
+    if torch.cuda.device_count() >= math.prod(UNEVEN_MESH):
+        out["mesh"], paths = uneven_mesh(smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"uneven_heads": out}), flush=True)
+    return paths
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -4206,6 +4375,7 @@ def main():
     by_path.update(phase_frontends(smi))
     by_path.update(phase_serve_sharded(smi))
     by_path.update(phase_zero3(smi))
+    by_path.update(phase_uneven_heads(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

@@ -57,6 +57,7 @@ collective inventory; ``tools/lint_repro_torch.py`` keeps every raw
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -77,6 +78,8 @@ __all__ = [
     "shard_slice_replicated",
     "reduce_scatter",
     "all_to_all",
+    "all_gather_replicated_v",
+    "all_to_all_v",
     "send_recv",
     "ring_shift",
     "ring_hop_start",
@@ -227,6 +230,65 @@ def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=ax.group)
     out = torch.cat(recv.unbind(0), dim=concat_dim)
+    _record("all-to-all", ax, x, out, concat_dim)
+    return out
+
+
+def _all_gather_v(x: torch.Tensor, ax: _Axis, dim: int,
+                  sizes: Sequence[int]) -> torch.Tensor:
+    """``_all_gather`` of unequal blocks: rank i holds ``sizes[i]`` of
+    ``dim``.  One ``all_to_all_single`` that sends this rank's block to
+    every rank (gloo's all-gather takes equal blocks only); equal sizes
+    take ``_all_gather`` itself."""
+    if len(set(sizes)) == 1:
+        return _all_gather(x, ax, dim)
+    xt = _front(x, dim)
+    if xt.shape[0] != sizes[ax.index]:
+        raise ValueError(f"all_gather_v: dim {dim} size {xt.shape[0]}, "
+                         f"rank {ax.index} of {ax.name!r} holds "
+                         f"{sizes[ax.index]}")
+    out = xt.new_empty((sum(sizes),) + xt.shape[1:])
+    dist.all_to_all_single(out, torch.cat([xt] * ax.size),
+                           output_split_sizes=list(sizes),
+                           input_split_sizes=[xt.shape[0]] * ax.size,
+                           group=ax.group)
+    out = _back(out, dim)
+    _record("all-gather", ax, x, out, dim)
+    return out
+
+
+def _all_to_all_v(x: torch.Tensor, ax: _Axis, split_dim: int,
+                  concat_dim: int, split_sizes: Sequence[int],
+                  concat_sizes: Sequence[int]) -> torch.Tensor:
+    """``_all_to_all`` of unequal blocks: ``split_dim`` cut into blocks of
+    ``split_sizes`` (block j to rank j), and the block from rank i, which
+    is ``concat_sizes[i]`` wide along ``concat_dim`` (this rank's
+    ``x.shape[concat_dim]`` is ``concat_sizes[ax.index]``), concatenated
+    along it in axis order.  Equal sizes on both sides take
+    ``_all_to_all`` itself."""
+    if len(set(split_sizes)) == 1 and len(set(concat_sizes)) == 1:
+        return _all_to_all(x, ax, split_dim, concat_dim)
+    if (x.shape[split_dim] != sum(split_sizes)
+            or x.shape[concat_dim] != concat_sizes[ax.index]):
+        raise ValueError(f"all_to_all_v: shape {tuple(x.shape)} against "
+                         f"split {list(split_sizes)} on dim {split_dim}, "
+                         f"rank {ax.index} of concat {list(concat_sizes)} "
+                         f"on dim {concat_dim}")
+    blocks = x.split(list(split_sizes), dim=split_dim)
+    send = torch.cat([b.reshape(-1) for b in blocks])
+    shapes = []
+    for n in concat_sizes:
+        shape = list(x.shape)
+        shape[split_dim] = split_sizes[ax.index]
+        shape[concat_dim] = n
+        shapes.append(shape)
+    counts = [math.prod(s) for s in shapes]
+    recv = send.new_empty(sum(counts))
+    dist.all_to_all_single(recv, send, output_split_sizes=counts,
+                           input_split_sizes=[b.numel() for b in blocks],
+                           group=ax.group)
+    out = torch.cat([r.view(s) for r, s in zip(recv.split(counts), shapes)],
+                    dim=concat_dim)
     _record("all-to-all", ax, x, out, concat_dim)
     return out
 
@@ -530,6 +592,64 @@ def all_to_all(x: torch.Tensor, axis_name, split_dim: int,
     """Repartition: split local ``split_dim`` across workers, concatenate the
     received blocks along ``concat_dim`` (the paper's tensor 'shuffle')."""
     return _AllToAll.apply(x, _axis(axis_name), split_dim, concat_dim)
+
+
+# ---------------------------------------------------------------------------
+# Unequal blocks: the paper's balanced decomposition (``core/partition.py``,
+# ``balanced_split``) of a dim the axis does not divide, e.g. query heads
+# over the model axis.  The gather's result is consumed identically on
+# every rank, so its adjoint is the restriction to the rank's own block
+# (``all_gather_replicated``'s); the v-style all-to-all is a block
+# permutation, whose adjoint is the reverse all-to-all.
+# ---------------------------------------------------------------------------
+
+class _GatherReplicatedV(Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim, sizes):
+        ctx.ax, ctx.dim, ctx.sizes = ax, dim, sizes
+        return _all_gather_v(x, ax, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = sum(ctx.sizes[:ctx.ax.index])
+        own = g.narrow(ctx.dim, lo, ctx.sizes[ctx.ax.index]).clone(
+            memory_format=torch.contiguous_format)
+        return own, None, None, None
+
+
+def all_gather_replicated_v(x: torch.Tensor, axis_name, dim: int,
+                            sizes: Sequence[int]) -> torch.Tensor:
+    """``all_gather_replicated`` of unequal blocks: rank i holds
+    ``sizes[i]`` of ``dim``; the blocks concatenated in axis order, the
+    result consumed identically on every rank.  Adjoint: the restriction
+    to the rank's own block."""
+    return _GatherReplicatedV.apply(x, _axis(axis_name), dim, tuple(sizes))
+
+
+class _AllToAllV(Function):
+    @staticmethod
+    def forward(ctx, x, ax, split_dim, concat_dim, split_sizes,
+                concat_sizes):
+        ctx.args = (ax, concat_dim, split_dim, concat_sizes, split_sizes)
+        return _all_to_all_v(x, ax, split_dim, concat_dim, split_sizes,
+                             concat_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reverse block permutation: each block back to its sender
+        return (_all_to_all_v(g, *ctx.args),) + (None,) * 5
+
+
+def all_to_all_v(x: torch.Tensor, axis_name, split_dim: int,
+                 concat_dim: int, split_sizes: Sequence[int],
+                 concat_sizes: Sequence[int]) -> torch.Tensor:
+    """``all_to_all`` of unequal blocks: ``split_dim`` cut into blocks of
+    ``split_sizes`` (block j to rank j); the block from rank i is
+    ``concat_sizes[i]`` wide along ``concat_dim``, where this rank holds
+    ``concat_sizes[axis_index]``.  Adjoint: ``all_to_all_v`` back, the
+    roles of the two dims and their sizes swapped."""
+    return _AllToAllV.apply(x, _axis(axis_name), split_dim, concat_dim,
+                            tuple(split_sizes), tuple(concat_sizes))
 
 
 # ---------------------------------------------------------------------------

@@ -276,12 +276,14 @@ def world1_cell(kind: str, arch: str, layers: int, batch: int,
 
 
 def mesh_cell(arch: str, layers: int, batch: int, seq: int,
-              mesh_shape: tuple) -> dict:
+              mesh_shape: tuple, rank: int = 0) -> dict:
     """The policy train program of ``arch`` cut to ``layers`` at a
-    caller's (data, model) ``mesh_shape``, batch and sequence: rank 0 of a
-    fake world of that size traces one step (``Policy(mesh)``, the
+    caller's (data, model) ``mesh_shape``, batch and sequence: ``rank`` of
+    a fake world of that size traces one step (``Policy(mesh)``, the
     reference's defaults), so the card's run of the same cell can be held
-    against it (its peak, collectives, kernel calls)."""
+    against it (its peak, collectives, kernel calls).  Ranks differ where
+    the model axis does not divide the query heads (the first hold one
+    head more)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -290,7 +292,7 @@ def mesh_cell(arch: str, layers: int, batch: int, seq: int,
     from repro_torch.sharding import Policy
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     chips = mesh_shape[0] * mesh_shape[1]
-    launch_mesh.init_fake_world(0, chips)
+    launch_mesh.init_fake_world(rank, chips)
     t0 = time.time()
     try:
         mesh = launch_mesh.make_host_mesh(mesh_shape, device="meta",
@@ -299,7 +301,8 @@ def mesh_cell(arch: str, layers: int, batch: int, seq: int,
     finally:
         dist.destroy_process_group()
     out = {"kind": "train", "arch": arch, "layers": layers, "batch": batch,
-           "seq": seq, "mesh": list(mesh_shape), "source": SOURCE}
+           "seq": seq, "mesh": list(mesh_shape), "rank": rank,
+           "source": SOURCE}
     out.update(summarize(tr, cfg, "train_4k", chips))
     for key in ("model_flops_global", "useful_flops_ratio", "mfu_bound"):
         out["roofline"].pop(key)

@@ -26,6 +26,11 @@ leaves them (``repro/sharding/policy.py:296``): each rank computes every
 K/V head, attends its query heads with the K/V heads their groups map to,
 and keeps its part of every K/V head in the cache (``kvdim``: its
 head_dim columns; ``kvseq``: its sequence block), so only q moves.
+Where the model axis does not divide the query heads (40 over 16), they
+split by the paper's ceil-first balanced decomposition (``head_block``:
+ranks 0-7 hold 3 heads, 8-15 hold 2), the same in serving and in the
+policy train program; the K/V heads are then whole as well, and q moves
+by the primitives' collectives of unequal blocks.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from repro_torch.core import layers as L
 from repro_torch.core import primitives as prim
 from repro_torch.core.linop import Layout, Repartition
+from repro_torch.core.partition import balanced_split, shard_offsets
 from repro_torch.core.ring_attention import (ring_attention,
                                              ring_attention_region)
 from repro_torch.kernels import ops
@@ -145,7 +151,9 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
     kernel's top-left causal mask), which train and prefill always have.
     Under a live ctx axis (train) S is this rank's sequence shard and
     attention rings over it (``core/ring_attention.py``): ``positions``
-    must then be global.
+    must then be global.  The query heads split by the balanced
+    decomposition (``local_heads``): where the model axis does not divide
+    them, the first ranks hold one head more.
 
     Serving (``mode`` prefill or decode; the weights are this rank's
     shards, ``cache`` this rank's part of ``models.init_cache(...,
@@ -159,15 +167,16 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
     hd = cfg.resolved_head_dim
     kv_whole = cfg.num_kv_heads % tp != 0
     kh = cfg.num_kv_heads if kv_whole else cfg.num_kv_heads // tp
-    q = _split_heads(L.affine_gather(h, p["wq"], axis=ax),
-                     cfg.num_heads // tp, hd)
+    _, n = local_heads(cfg, policy)
+    q = _split_heads(L.affine_gather(h, p["wq"], axis=ax), n, hd)
     k = _split_heads(L.affine_gather(h, p["wk"], axis=ax), kh, hd)
     v = _split_heads(L.affine_gather(h, p["wv"], axis=ax), kh, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     ctx = policy.active_ctx_axis
     if mode == "decode":
-        out = _decode_tp(q, k, v, cache, index, cache_len, policy, kv_whole)
+        out = _decode_tp(q, k, v, cache, index, cache_len, cfg, policy,
+                         kv_whole)
     else:
         kl, vl = ((_kv_of_local_heads(t, cfg, policy) for t in (k, v))
                   if kv_whole else (k, v))
@@ -177,7 +186,7 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
             out = ops.flash_attention(q, kl, vl, causal=True)
         if mode == "prefill":
             _prefill_cache_tp(k, v, cache, index, policy, kv_whole)
-    out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
+    out = out.reshape(out.shape[0], out.shape[1], n * hd)
     return L.affine_scatter(out, p["wo"], axis=ax)
 
 
@@ -189,22 +198,31 @@ def attention_block_sp(p, specs, h, cfg, policy, *, positions, fsdp_axes):
     rank's blocks of wq, wk, wv, wo laid out by ``specs`` (ZeRO-3 over the
     fsdp axes, heads over ``model``).  The sequence is gathered, each
     weight gathered over the fsdp axes right before its use, q on this
-    rank's H/tp query heads; attention runs on them through
+    rank's query heads (``local_heads``); attention runs on them through
     ``ops.flash_attention`` (whole sequence, causal), and wo's row block
     reduce-scatters the partial output back onto the sequence shard.
     Where ``model`` does not divide the K/V heads (glm4-9b's 2 under TP 4)
     wk and wv are gathered whole over ``model`` as well and each rank
     takes the K/V heads its query heads attend (``_kv_of_local_heads``);
-    their gradients return to the blocks through the gather's adjoint.
+    where it does not divide the query heads, so do wq and wo, and each
+    rank takes its balanced block of heads: wq's columns and wo's rows.
+    Their gradients return to the blocks through the gather's adjoint (or,
+    for a leaf the spec leaves whole, the sum over ``model`` after the
+    backward), each rank contributing zero to the other ranks' heads.
     ``positions``: (B/dp, S), global."""
     ax = policy.model_axis
     tp = policy.model_size
     hd = cfg.resolved_head_dim
     kv_whole = cfg.num_kv_heads % tp != 0
+    q_whole = cfg.num_heads % tp != 0
     kv_axes = fsdp_axes + ((ax,) if kv_whole else ())
+    q_axes = fsdp_axes + ((ax,) if q_whole else ())
+    first, n = local_heads(cfg, policy)
     x = seq_gather(h, ax)
-    q = _split_heads(x @ gather_block(p["wq"], specs["wq"], fsdp_axes),
-                     cfg.num_heads // tp, hd)
+    wq = gather_block(p["wq"], specs["wq"], q_axes)
+    if q_whole:
+        wq = wq[:, first * hd:(first + n) * hd]
+    q = _split_heads(x @ wq, n, hd)
     kh = cfg.num_kv_heads if kv_whole else cfg.num_kv_heads // tp
     k = _split_heads(x @ gather_block(p["wk"], specs["wk"], kv_axes), kh, hd)
     v = _split_heads(x @ gather_block(p["wv"], specs["wv"], kv_axes), kh, hd)
@@ -213,25 +231,54 @@ def attention_block_sp(p, specs, h, cfg, policy, *, positions, fsdp_axes):
     if kv_whole:
         k, v = (_kv_of_local_heads(t, cfg, policy) for t in (k, v))
     out = ops.flash_attention(q, k, v, causal=True)
-    out = out.reshape(out.shape[0], out.shape[1], (cfg.num_heads // tp) * hd)
-    y = out @ gather_block(p["wo"], specs["wo"], fsdp_axes)
-    return seq_scatter(y, ax, tp > 1)
+    out = out.reshape(out.shape[0], out.shape[1], n * hd)
+    wo = gather_block(p["wo"], specs["wo"], q_axes)
+    if q_whole:
+        wo = wo[first * hd:(first + n) * hd]
+    return seq_scatter(out @ wo, ax, tp > 1)
+
+
+def head_block(num_heads: int, tp: int, index: int) -> tuple[int, int]:
+    """(first, count) of the query heads that rank ``index`` of a
+    ``tp``-way model axis holds: the paper's ceil-first balanced split
+    (``core/partition.py``), so 40 heads over 16 ranks give ranks 0-7
+    three heads and ranks 8-15 two.  Every site that splits heads over
+    ``model`` uses it."""
+    return (shard_offsets(num_heads, tp)[index],
+            balanced_split(num_heads, tp)[index])
+
+
+def local_heads(cfg, policy) -> tuple[int, int]:
+    """``head_block`` of this rank along ``policy``'s model axis."""
+    return head_block(cfg.num_heads, policy.model_size,
+                      prim.axis_index(policy.model_axis))
+
+
+def local_kv_heads(cfg, tp: int, index: int) -> list[int]:
+    """The K/V heads that rank ``index``'s query heads attend, laid out for
+    the GQA grouping of ``ops.flash_attention`` (query head j of n attends
+    K/V head j // (n / kv)): where the rank holds whole groups, their K/V
+    heads; where its heads lie in one group, that group's head; otherwise
+    (a rank holding parts of two groups, as phi3-medium's 40 heads over
+    10 K/V heads at TP 16 give) one K/V head per query head."""
+    first, n = head_block(cfg.num_heads, tp, index)
+    group = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = first // group, (first + n - 1) // group
+    if lo == hi:
+        return [lo]
+    if first % group == 0 and n % group == 0:
+        return list(range(lo, hi + 1))
+    return [(first + j) // group for j in range(n)]
 
 
 def _kv_of_local_heads(t, cfg, policy):
-    """Of every K/V head, (B, S, KH, hd), the ones this rank's H/tp query
-    heads attend, laid out for the GQA grouping of ``ops.flash_attention``
-    (query head j of n attends K/V head j // (n / kv)): where the rank
-    holds whole groups, their K/V heads; where it holds part of one
-    group, that group's head; otherwise one K/V head per query head."""
-    tp = policy.model_size
-    h_loc = cfg.num_heads // tp
-    group = cfg.num_heads // cfg.num_kv_heads
-    first = prim.axis_index(policy.model_axis) * h_loc
-    if h_loc % group == 0 or group % h_loc == 0:
-        lo = first // group
-        return t[:, :, lo:lo + max(h_loc // group, 1)]
-    return t[:, :, (first + torch.arange(h_loc, device=t.device)) // group]
+    """Of every K/V head, (B, S, KH, hd), the ones this rank's query heads
+    attend (``local_kv_heads``): a slice where they are consecutive."""
+    idx = local_kv_heads(cfg, policy.model_size,
+                         prim.axis_index(policy.model_axis))
+    if idx == list(range(idx[0], idx[-1] + 1)):
+        return t[:, :, idx[0]:idx[-1] + 1]
+    return t[:, :, torch.tensor(idx, device=t.device)]
 
 
 def _heads_to(dim: int, policy) -> Repartition:
@@ -266,17 +313,23 @@ def _prefill_cache_tp(k, v, cache, index: int, policy, kv_whole=False):
             buf.copy_(_heads_to(1, policy)(full))
 
 
-def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy,
+def _decode_tp(q, k, v, cache, index: int, cache_len: int, cfg, policy,
                kv_whole=False):
-    """One token's attention, (B, 1, H/tp, hd) -> (B, 1, H/tp, hd), this
-    rank's heads of q against the sharded cache (module docstring); k, v
-    are this rank's K/V heads, or every K/V head with ``kv_whole``.
-    Scores, softmax and the p.v contraction in fp32, as
-    ``decode_attention``."""
+    """One token's attention, (B, 1, n, hd) -> (B, 1, n, hd), this rank's
+    n query heads (``local_heads``) against the sharded cache (module
+    docstring); k, v are this rank's K/V heads, or every K/V head with
+    ``kv_whole``.  With ``kv_whole`` only q moves, by the collectives of
+    unequal blocks where the model axis does not divide the query heads
+    (it then does not divide the K/V heads either: H = group x KH):
+    under ``kvdim`` an ``all_to_all_v`` to the head_dim split and back,
+    under ``kvseq`` an ``all_gather_replicated_v``.  Scores, softmax and
+    the p.v contraction in fp32, as ``decode_attention``."""
     ax = policy.model_axis
     tp = policy.model_size
     B, _, h_loc, hd = q.shape
-    H = h_loc * tp
+    H = cfg.num_heads
+    counts = balanced_split(H, tp)
+    first, _ = local_heads(cfg, policy)
     kh_loc = k.shape[2]
     KH = kh_loc if kv_whole else kh_loc * tp
     group = H // KH
@@ -287,7 +340,8 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy,
         d_loc = hd // tp
         if kv_whole:
             # only q moves: every rank holds every K/V head whole
-            q = _heads_to(3, policy)(q).reshape(B, H, d_loc)
+            q = prim.all_to_all_v(q, ax, 3, 2, [d_loc] * tp, counts)
+            q = q.reshape(B, H, d_loc)
             k, v = (t[..., me * d_loc:(me + 1) * d_loc].reshape(B, KH, d_loc)
                     for t in (k, v))
         else:
@@ -310,11 +364,11 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy,
         o = torch.einsum("bkgs,bskh->bkgh", p.to(q.dtype).float(),
                          v_cache.float())
         o = o.reshape(B, 1, H, d_loc).to(q.dtype)
-        return Repartition(Layout(ax, 3), Layout(ax, 2))(o)
+        return prim.all_to_all_v(o, ax, 2, 3, counts, [d_loc] * tp)
     # kvseq: q, k, v gathered whole; the owner of position cache_len
     # writes it; every rank attends over its own block (flash-decoding)
     if kv_whole:
-        q = prim.all_gather(q, ax, 2).reshape(B, H, hd)
+        q = prim.all_gather_replicated_v(q, ax, 2, counts).reshape(B, H, hd)
         k, v = k.reshape(B, KH, hd), v.reshape(B, KH, hd)
     else:
         whole = prim.all_gather(torch.cat([q, k, v], dim=2), ax, 2)
@@ -337,4 +391,4 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, policy,
                       p.sum(dim=-1, keepdim=True)], dim=-1)
     part = prim.all_reduce(part, ax)           # (B, KH, g, hd + 1)
     o = (part[..., :hd] / part[..., hd:]).reshape(B, 1, H, hd).to(q.dtype)
-    return o[:, :, me * h_loc:(me + 1) * h_loc]
+    return o[:, :, first:first + h_loc]

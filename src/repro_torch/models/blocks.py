@@ -71,11 +71,12 @@ def check_serve_policy(cfg, policy):
     than ``kvdim`` and ``kvseq`` (``ValueError``); a width that sharded
     serving splits over the model axis and the axis does not divide
     (``NotImplementedError``, naming each): d_model (the residual's
-    features), the query heads, under ``kvdim`` head_dim, d_ff, the SSM
-    heads and d_inner, the experts (the reference refuses those too,
-    ``moe.py``'s expert split) and the shared experts' hidden width.
-    K/V head counts the axis does not divide are served: ``wk`` and
-    ``wv`` stay whole on every rank (``attention_block_tp``)."""
+    features), under ``kvdim`` head_dim, d_ff, the SSM heads and d_inner,
+    the experts (the reference refuses those too, ``moe.py``'s expert
+    split) and the shared experts' hidden width.  Head counts the axis
+    does not divide are served: ``wk`` and ``wv`` stay whole on every
+    rank, and the query heads split by the balanced decomposition
+    (``attention_block_tp``, ``attention.head_block``)."""
     extra = [n for n in policy.axis_names
              if n not in (policy.data_axis, policy.model_axis)
              and policy.axis_size(n) > 1]
@@ -87,10 +88,8 @@ def check_serve_policy(cfg, policy):
     kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
     mixers, ffns = {m for m, _ in kinds}, {f for _, f in kinds}
     widths = {"d_model": cfg.d_model}
-    if "attn" in mixers:
-        widths["num_heads"] = cfg.num_heads
-        if policy.kv_layout == "kvdim":
-            widths["head_dim (kvdim)"] = cfg.resolved_head_dim
+    if "attn" in mixers and policy.kv_layout == "kvdim":
+        widths["head_dim (kvdim)"] = cfg.resolved_head_dim
     if "ssm" in mixers:
         widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
     if "mlp" in ffns:
@@ -125,12 +124,12 @@ def check_train_policy(cfg, policy):
     anything runs: a mesh axis besides pod, data and model, or a policy
     without ``seq_shard`` (``ValueError``); a width the program splits
     over the model axis that the axis does not divide
-    (``NotImplementedError``, naming each): the query heads (the
-    reference runs them, ``ROADMAP.md`` item 16), the SSM heads and
-    d_inner, and the experts.  K/V head counts the axis does not divide
-    are trained: wk and wv are gathered whole (``attention_block_sp``);
-    a d_ff or vocabulary it does not divide stays whole, as the
-    reference's ``param_spec`` leaves it."""
+    (``NotImplementedError``, naming each): the SSM heads and d_inner,
+    and the experts.  Head counts the axis does not divide are trained:
+    wk and wv, or wq and wo, are gathered whole and each rank takes the
+    heads it attends, its query heads by the balanced decomposition
+    (``attention_block_sp``); a d_ff or vocabulary the axis does not
+    divide stays whole, as the reference's ``param_spec`` leaves it."""
     extra = [n for n in policy.axis_names
              if n not in (policy.pod_axis, policy.data_axis,
                           policy.model_axis) and policy.axis_size(n) > 1]
@@ -142,8 +141,6 @@ def check_train_policy(cfg, policy):
                          "sequence over the model axis: seq_shard=True")
     kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
     widths = {}
-    if any(m == "attn" for m, _ in kinds):
-        widths["num_heads"] = cfg.num_heads
     if any(m == "ssm" for m, _ in kinds):
         widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
     if any(f == "moe" for _, f in kinds):

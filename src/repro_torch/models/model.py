@@ -33,6 +33,7 @@ from repro_torch.core.linop import PartitionSpec as P
 from repro_torch.device import resolve_device
 from repro_torch.sharding import Partitioned
 
+from .attention import head_block
 from .blocks import (check_serve_policy, check_train_policy, is_sp_policy,
                      pipeline_stage_body, superblock_apply,
                      superblock_apply_sp, superblock_init)
@@ -288,7 +289,9 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
 # vectors, row blocks of out_proj; in_B and in_C whole); an MoE FFN's
 # experts on their E dim (the logical "experts"), the router whole and
 # the shared experts as the MLP; wk and wv whole where the model axis does
-# not divide the K/V heads; the embedding, final norm and head whole.
+# not divide the K/V heads, and wq's columns and wo's rows cut by the
+# balanced split of the query heads where it does not divide those; the
+# embedding, final norm and head whole.
 # ---------------------------------------------------------------------------
 
 _SERVE_SPLIT = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_up": 2,
@@ -301,35 +304,47 @@ _FP32_INIT = {"a_log": "log_uniform", "d_skip": "ones", "dt_bias": "zeros",
               "ssm_norm": "ones", "router": "normal"}
 
 
-def _serve_split(cfg, key: str, tp: int) -> int | None:
-    """The dim of leaf ``key`` (its leading dim the stack) split over
-    ``model`` at size ``tp`` (None: whole)."""
+def _serve_block(cfg, key: str, shape: tuple, tp: int, index: int):
+    """``(dim, start, length)`` of rank ``index``'s block of leaf ``key``
+    (global ``shape``, its leading dim the stack) for sharded serving over
+    a model axis of size ``tp``; None where the leaf is whole.  wq's
+    columns and wo's rows are the rank's query heads
+    (``attention.head_block``: the balanced split where the axis does not
+    divide them); every other split leaf is cut into equal blocks."""
     if not key.startswith("blocks."):
         return None
     name = key.rsplit(".", 1)[-1]
-    if name in ("wk", "wv") and cfg.num_kv_heads % tp:
+    dim = _SERVE_SPLIT.get(name)
+    if dim is None or (name in ("wk", "wv") and cfg.num_kv_heads % tp):
         return None
-    return _SERVE_SPLIT.get(name)
+    if name in ("wq", "wo"):
+        hd = cfg.resolved_head_dim
+        first, n = head_block(cfg.num_heads, tp, index)
+        return dim, first * hd, n * hd
+    n = shape[dim] // tp
+    return dim, index * n, n
 
 
-def serve_param_parts(cfg, params, tp: int) -> dict:
-    """``Partitioned`` declarations of a global params dict for sharded
-    serving over a model axis of size ``tp``: each ``blocks.*`` leaf
-    (n_super, ...) split over ``model`` along the dim ``_serve_split``
-    names, every other leaf whole."""
-    return {k: Partitioned() if (dim := _serve_split(cfg, k, tp)) is None
-            else Partitioned(*([None] * dim + ["model"])) for k in params}
+def _model_index(policy) -> int:
+    """This rank's position along ``policy``'s model axis."""
+    with prim.use_mesh(policy.mesh):
+        return prim.axis_index(policy.model_axis)
 
 
 def shard_params(cfg, params, policy) -> dict:
     """This rank's shards of the GLOBAL ``params`` (``init_params``'s tree,
-    the same on every rank) for sharded serving under ``policy``.  A
-    split leaf is a fresh contiguous copy; a whole one is the leaf
-    itself."""
+    the same on every rank) for sharded serving under ``policy``: each
+    ``blocks.*`` leaf's block along the dim ``_serve_block`` names, a
+    fresh contiguous copy; a whole leaf is the leaf itself."""
     check_serve_policy(cfg, policy)
-    parts = serve_param_parts(cfg, params, policy.model_size)
-    blocks = local_blocks(parts, params, policy)
-    return {k: v.contiguous() for k, v in blocks.items()}
+    tp, me = policy.model_size, _model_index(policy)
+    out = {}
+    with torch.no_grad():
+        for k, v in params.items():
+            blk = _serve_block(cfg, k, tuple(v.shape), tp, me)
+            out[k] = v if blk is None else v.narrow(*blk).clone(
+                memory_format=torch.contiguous_format)
+    return out
 
 
 def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
@@ -351,18 +366,18 @@ def init_rank_params(cfg, policy, seed: int, device=None, dtype=None) -> dict:
     check_serve_policy(cfg, policy)
     device = resolve_device(device)
     dtype = dtype or DTYPES[cfg.dtype]
-    tp = policy.model_size
-    with prim.use_mesh(policy.mesh):
-        me = prim.axis_index(policy.model_axis)
+    tp, me = policy.model_size, _model_index(policy)
     whole = torch.Generator(device=device).manual_seed(seed)
     mine = torch.Generator(device=device).manual_seed(seed + 1 + me)
     out = {}
     for key, like in param_specs(cfg).items():
-        shape, dim = tuple(like.shape), _serve_split(cfg, key, tp)
-        if dim is not None:
-            shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
+        shape = tuple(like.shape)
+        blk = _serve_block(cfg, key, shape, tp, me)
+        if blk is not None:
+            dim, _, n = blk
+            shape = shape[:dim] + (n,) + shape[dim + 1:]
         out[key] = _draw_block(key, tuple(like.shape), shape,
-                               whole if dim is None else mine, dtype)
+                               whole if blk is None else mine, dtype)
     return out
 
 

@@ -7,9 +7,10 @@ at full width, records the collective counts the card's profiler counted
 jamba-v0.1-52b's 32), each one a c10d op; glm4-9b ``decode_32k`` lowers on
 the fake 16 x 16 world through the CLI and writes every key of the
 reference's result plus ``program``, ``fits`` and ``source``; a cell the
-port refuses is written with its message; the kernels' meta route refuses
-what the card refuses (bf16 flash at head dim 8) and launches nothing;
-the guard reads a meta flag as a clean step.
+port refuses is written with its message; phi4-mini's ``train_4k``, whose
+24 query heads 16 does not divide, traces with a roofline; the kernels'
+meta route refuses what the card refuses (bf16 flash at head dim 8) and
+launches nothing; the guard reads a meta flag as a clean step.
 """
 
 import dataclasses
@@ -67,16 +68,36 @@ def test_glm4_decode_32k_writes_every_key(tmp_path, monkeypatch):
     assert not dist.is_initialized()
 
 
-def test_a_refused_cell_is_written_with_the_ports_message():
-    """phi4-mini's 24 query heads do not divide over the model axis's 16:
-    the policy train program refuses the cell by that width (mamba2-370m's
-    ``train_4k``, refused by the pipeline cut before, is traced now)."""
-    res = dryrun.lower_cell("phi4-mini-3.8b", "train_4k", verbose=False)
+def test_a_refused_cell_is_written_with_the_ports_message(monkeypatch):
+    """A width the policy train program splits over the model axis and
+    the axis does not divide, here jamba's experts set to 24 over 16, is
+    refused by name and the cell written with the port's message (every
+    cell of the 16 x 16 sweep is traced: query heads split by the
+    balanced decomposition)."""
+    from repro_torch import configs
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                num_experts=24)
+    monkeypatch.setattr(configs, "get_config", lambda arch: jamba)
+    res = dryrun.lower_cell("jamba-v0.1-52b", "train_4k", verbose=False)
     assert res["refused"].startswith(
         "NotImplementedError: the policy train program")
-    assert "'num_heads': 24" in res["refused"]
+    assert "'num_experts': 24" in res["refused"]
     assert REFERENCE_KEYS | {"program", "fits", "source"} <= set(res)
     assert res["roofline"] is None and not dist.is_initialized()
+
+
+def test_phi4_mini_train_4k_is_traced_with_a_roofline():
+    """phi4-mini's 24 query heads over the model axis's 16 (ranks 0-7
+    hold 2, ranks 8-15 one): its ``train_4k`` cell runs the policy train
+    program, one flash call a layer in the forward and again in the
+    remat, and has memory, fits, collectives and a roofline."""
+    res = dryrun.lower_cell("phi4-mini-3.8b", "train_4k", verbose=False)
+    assert res["refused"] is None and "ZeRO-3" in res["program"]
+    assert res["kernel_calls"]["flash_attention"] == 2 * 32
+    assert res["fits"] is True and res["memory"]["peak_per_device_GiB"] > 0
+    assert res["collectives"]["counts"]["all-gather"] > 0
+    assert res["roofline"]["t_bound_s"] > 0
+    assert not dist.is_initialized()
 
 
 def test_glm4_train_4k_is_traced_under_zero3():

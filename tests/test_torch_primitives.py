@@ -5,7 +5,9 @@ One pool of 8 gloo ranks (``mesh.spawn``) runs every case while a child
 interpreter with 8 host devices runs the JAX side (``torch_dist_jax.py``),
 both on the same numpy draws (``torch_dist_cases.py``).  The cases mirror
 tests/md/test_primitive_adjoints.py one for one; ``test_primitive_on_mesh``
-adds every primitive along every axis of the (2, 4) and (2, 2, 2) meshes.
+adds every primitive along every axis of the (2, 4) and (2, 2, 2) meshes,
+and ``test_unequal_block_collective_adjoint`` the port's collectives of
+unequal blocks (Eq. 13 and their forwards; no JAX counterpart).
 
 Each case holds: Eq. 13 on the port's side (per-rank autograd through the
 hand-written backwards, the inner product over the global space) at the
@@ -23,12 +25,21 @@ import torch
 import torch_dist_cases as C
 from repro_torch.core import primitives as prim
 from repro_torch.core.adjoint import adjoint_test
+from repro_torch.core.partition import balanced_split, shard_offsets
 from repro_torch.core.linop import P, assemble, scatter, spec_groups
 from repro_torch.launch import dist_check, mesh as tmesh
 
 POOL_TIMEOUT_S = 600
 PRIM_CASES = C.prim_cases()
 SWEEP_CASES = C.sweep_cases()
+# The collectives of unequal blocks, ``all_gather_replicated_v`` and
+# ``all_to_all_v`` (the port's alone: GSPMD pads instead): id -> (name,
+# mesh, axis, n), each split dim the balanced split of n (the gather's)
+# or of n and n + 1 (the all-to-all's rows and columns) over the axis.
+UNEQUAL = {f"{name}-{mesh}-{ax}": (name, mesh, ax, n)
+           for name in ("all_gather_replicated_v", "all_to_all_v")
+           for mesh, ax, n in (("1d", "model", 13), ("2d", "model", 10),
+                               ("2d", "data", 5), ("3d", "pipe", 3))}
 
 
 def _eval(case, m) -> dict:
@@ -59,6 +70,38 @@ def _eval(case, m) -> dict:
                        out_spec)
         (vjp,) = torch.autograd.grad(out, xg, y)
     return {"fx": fx, "vjp": vjp, "rel": rel}
+
+
+def _unequal(cid, m) -> dict:
+    """One collective of unequal blocks on this rank: Eq. 13, and its
+    forward against the global array X (n, n + 1, 3): the gather takes
+    row block i of X on rank i to X on every rank, the all-to-all column
+    block i to row block i."""
+    name, _, ax, n = UNEQUAL[cid]
+    X = torch.from_numpy(C.draw((n, n + 1, 3), C.seed_of(cid)))
+    group = spec_groups(P(ax), m)
+    with prim.use_mesh(m):
+        k, me = prim.axis_size(ax), prim.axis_index(ax)
+        rows = shard_offsets(n, k)
+        mine = X[rows[me]:rows[me + 1]]
+        if name == "all_gather_replicated_v":
+            x, want, y_groups = mine, X, []
+
+            def f(t):
+                return prim.all_gather_replicated_v(t, ax, 0,
+                                                    balanced_split(n, k))
+        else:
+            cols = shard_offsets(n + 1, k)
+            x, want, y_groups = X[:, cols[me]:cols[me + 1]], mine, group
+
+            def f(t):
+                return prim.all_to_all_v(t, ax, 0, 1, balanced_split(n, k),
+                                         balanced_split(n + 1, k))
+        with torch.no_grad():
+            exact = torch.equal(f(x.clone()), want)
+        rel = adjoint_test(f, x.clone(), x_groups=group,
+                           y_groups=y_groups).rel_err
+    return {"exact": exact, "rel": rel}
 
 
 def _mesh_facts(rank) -> dict:
@@ -114,6 +157,8 @@ def _rank_fn(rank, mesh1d):
         meshes[name] = tmesh.make_host_mesh(shape, axes, device="cpu")
     out = {cid: _eval(case, meshes[case["mesh"]])
            for cid, case in {**PRIM_CASES, **SWEEP_CASES}.items()}
+    out["unequal"] = {cid: _unequal(cid, meshes[UNEQUAL[cid][1]])
+                      for cid in UNEQUAL}
     # tests/md/test_primitive_adjoints.py: the analytic gradient of the
     # boundary case, sum over w of x * B(w), at w = 1
     x = torch.from_numpy(PRIM_CASES["boundary_transpose"]["inputs"][0])
@@ -272,6 +317,20 @@ def test_halo_exchange_unbalanced(results):
         hi = lmax + bulk + (C.UNBAL_RW[i] if i < 7 else 0)
         want[lo:hi] = 1
         np.testing.assert_array_equal(y[i, :, 0], want, err_msg=f"worker {i}")
+
+
+@pytest.mark.parametrize("cid", sorted(UNEQUAL))
+def test_unequal_block_collective_adjoint(results, cid):
+    """Eq. 13 for the collectives of unequal blocks on every rank (the
+    gather's adjoint the restriction to the rank's block, the
+    all-to-all's the reverse all-to-all), and their forwards exact: the
+    gather returns the whole array on every rank, the all-to-all moves
+    the balanced column split to the balanced row split."""
+    ranks, _ = results
+    for r, rank in enumerate(ranks):
+        got = rank["unequal"][cid]
+        assert got["exact"], (cid, r)
+        assert got["rel"] < C.EPS, (cid, r, got["rel"])
 
 
 def test_2d_mesh_composed_axes(results):

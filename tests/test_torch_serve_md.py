@@ -187,8 +187,17 @@ def test_serving_refuses_ssm_and_moe(arch, tp, match):
 
 
 def test_serving_refuses_heads_the_model_axis_does_not_divide():
-    with pytest.raises(NotImplementedError, match="num_heads"):
+    """Query heads the model axis does not divide are served (split by
+    the balanced decomposition): reduced mistral at TP 3 is refused for
+    its d_model alone, and the four archs whose heads 16 does not divide
+    are accepted at (16, 16); a head_dim ``kvdim`` cannot split is
+    refused."""
+    with pytest.raises(NotImplementedError, match="d_model") as err:
         check_serve_policy(CFG, _policy((1, 3)))
+    assert "num_heads" not in str(err.value)
+    for arch in ("llama4-maverick-400b-a17b", "phi3-medium-14b",
+                 "phi4-mini-3.8b", "musicgen-medium"):
+        check_serve_policy(get_config(arch), _policy((16, 16)))
     # glm4-9b has 2 kv heads: TP 2 and TP 4 serve it (wk, wv whole at 4)
     glm = get_config("glm4-9b")
     check_serve_policy(glm, _policy((1, 2)))

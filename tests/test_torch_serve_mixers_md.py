@@ -1,17 +1,20 @@
-"""The port's sharded serving of SSM mixers, MoE FFNs and K/V head counts
-the model axis does not divide, against the JAX package: one pool of 8
-gloo ranks beside a child interpreter with 8 host devices
+"""The port's sharded serving of SSM mixers, MoE FFNs and K/V and query
+head counts the model axis does not divide, against the JAX package: one
+pool of 8 gloo ranks beside a child interpreter with 8 host devices
 (``torch_serve_mixers_jax.py``) that runs the reference's engine with the
 same policy on the same carried-over parameters (fp32, reduced configs).
 
 - jamba at (data, model) = (2, 4) under ``kvdim`` and (4, 2) under
   ``kvseq``, mamba2 at (2, 4), kimi-k2 at (2, 4) under ``kvdim``,
   llama4-maverick at (4, 2) under ``kvseq``, glm4-9b at (2, 4) under
-  both (2 K/V heads under TP 4), and 12 query heads over 3 K/V heads at
-  (4, 2): the prefill's last logits of each rank's rows within 1e-3 of
-  scale and the 8 greedy tokens equal to the reference engine's with the
-  same policy.  The reference's MoE capacity is per data replica, so at
-  data > 1 it is held to that engine, not to one without a policy.
+  both (2 K/V heads under TP 4), 12 query heads over 3 K/V heads at
+  (4, 2), and at (2, 4) under both layouts 10 query heads over 5 (phi3)
+  and 6 over 2 (phi4-mini), which TP 4 splits 3, 3, 2, 2 and 2, 2, 1, 1
+  (the balanced decomposition): the prefill's last logits of each rank's
+  rows within 1e-3 of scale and the 8 greedy tokens equal to the
+  reference engine's with the same policy.  The reference's MoE capacity
+  is per data replica, so at data > 1 it is held to that engine, not to
+  one without a policy.
 - ``init_rank_params`` draws the SSM and router leaves at
   ``init_params``' distributions (jamba, d_model widened to 256 for
   enough draws a rank).
@@ -179,6 +182,9 @@ def _policy(shape, **kw):
 @pytest.mark.parametrize("arch,tp", [
     ("jamba-v0.1-52b", 4), ("kimi-k2-1t-a32b", 4), ("mamba2-370m", 4),
     ("llama4-maverick-400b-a17b", 4), ("glm4-9b", 4), ("phi3-medium-14b", 4),
+    # query heads TP 16 does not divide: 40, 40, 24 and 24
+    ("llama4-maverick-400b-a17b", 16), ("phi3-medium-14b", 16),
+    ("phi4-mini-3.8b", 16), ("musicgen-medium", 16),
 ])
 @pytest.mark.parametrize("layout", ["kvdim", "kvseq"])
 def test_serving_accepts_the_full_width_families(arch, tp, layout):

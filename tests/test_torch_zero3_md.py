@@ -15,6 +15,10 @@ rounding (``torch_zero3_cases.REFERENCE``).
 - reduced kimi-k2 (MoE, Adafactor) cut to one block period, and reduced
   mamba2-370m (SSM, tied embeddings), at (2, 4): losses, grad norms and
   the state after two steps.
+- reduced glm4-9b with 6 query heads, which model = 4 does not divide
+  (wq's columns split mid-head by the reference's spec, each rank
+  attending its balanced block of heads), at (2, 4): losses, grad norms,
+  every gradient leaf and the state after two steps.
 - ZeRO-3 holds: each rank's block of each leaf is 1 / (the size of the
   axes its spec names) of it, and so are its moments.
 - the sharded state saved and restored bitwise, and the same checkpoint
@@ -24,7 +28,6 @@ rounding (``torch_zero3_cases.REFERENCE``).
 """
 
 import contextlib
-import dataclasses
 import functools
 import io
 import math
@@ -44,6 +47,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import linop
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as launch_train
+from repro_torch.models.attention import head_block, local_kv_heads
 from repro_torch.models.blocks import check_train_policy
 from repro_torch.models.model import shard_train_params
 from repro_torch.optim import make_optimizer
@@ -55,11 +59,8 @@ from repro_torch.train.step import sp_state_parts
 POOL_TIMEOUT_S = 600
 
 
-def config(arch):
-    cfg = reduced(get_config(arch))
-    if C.ARCHS[arch]:
-        cfg = dataclasses.replace(cfg, num_layers=C.ARCHS[arch])
-    return cfg
+def config(model):
+    return C.model_config(model, get_config, reduced)
 
 
 def _flat_state(state) -> dict:
@@ -217,20 +218,20 @@ def test_losses_and_grad_norms_match_reference(results, case):
 
 
 @pytest.mark.parametrize("case", [c for c in sorted(C.CASES)
-                                  if c.startswith("glm")])
+                                  if C.REFERENCE[c] in C.GRADS_CASES])
 def test_global_grads_match_reference(results, case):
     """Every gradient leaf of the first step, gathered from the blocks,
     against the reference's on (2, 4) (its gradients are global values)."""
     ranks, want, _ = results
+    ref = C.REFERENCE[case]
     np.testing.assert_allclose(ranks[0][case]["mets"][0]["loss"],
-                               want[f"{C.GRADS_CASE}/loss"],
-                               rtol=C.LOSS_RTOL)
+                               want[f"{ref}/loss"], rtol=C.LOSS_RTOL)
     got = ranks[0][case]["grads"]
     keys = {k.split("/", 2)[2] for k in want
-            if k.startswith(f"{C.GRADS_CASE}/grads/")}
+            if k.startswith(f"{ref}/grads/")}
     assert keys == set(got)
     for k in sorted(keys):
-        np.testing.assert_allclose(got[k], want[f"{C.GRADS_CASE}/grads/{k}"],
+        np.testing.assert_allclose(got[k], want[f"{ref}/grads/{k}"],
                                    rtol=C.GRAD_TOL, atol=C.GRAD_TOL,
                                    err_msg=f"{case} grad {k}")
 
@@ -327,10 +328,26 @@ class _FakeMesh:
                                         ("musicgen-medium", 24),
                                         ("llama4-maverick-400b-a17b", 40)])
 def test_query_heads_the_model_axis_does_not_divide_are_refused(arch, heads):
+    """The policy train program takes query heads the model axis does not
+    divide: at (16, 16) each rank's block of heads is the balanced split
+    (the first H % 16 ranks one head more, the blocks consecutive), and
+    the K/V heads each rank takes give every query head its own group's
+    K/V head under the GQA grouping of ``ops.flash_attention``."""
     cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match=f"'num_heads': {heads}"):
-        check_train_policy(cfg, Policy(_FakeMesh((16, 16))))
+    assert cfg.num_heads == heads
+    check_train_policy(cfg, Policy(_FakeMesh((16, 16))))
     check_train_policy(get_config("glm4-9b"), Policy(_FakeMesh((16, 16))))
+    group = cfg.num_heads // cfg.num_kv_heads
+    nxt = 0
+    for r in range(16):
+        first, n = head_block(heads, 16, r)
+        assert first == nxt and n == heads // 16 + (r < heads % 16)
+        nxt = first + n
+        kv = local_kv_heads(cfg, 16, r)
+        assert n % len(kv) == 0
+        for j in range(n):
+            assert kv[j // (n // len(kv))] == (first + j) // group, (r, j)
+    assert nxt == heads
 
 
 def test_other_axes_and_no_seq_shard_are_refused():

@@ -1,5 +1,5 @@
 """Cases shared by the port's sharded serving of SSM mixers, MoE FFNs and
-K/V head counts the model axis does not divide
+K/V and query head counts the model axis does not divide
 (``test_torch_serve_mixers_md.py``) and its JAX side
 (``torch_serve_mixers_jax.py``): the reference's ``ServeEngine(cfg,
 params, Policy.for_mesh(mesh, kv_layout=...))`` on reduced configs over
@@ -28,7 +28,11 @@ PROMPT_SEED = 12
 # gives 4 query heads, so no reduced arch has a rank holding parts of two
 # GQA groups; "phi3_kv3" (12 query heads over 3 K/V heads at TP 2: a rank
 # holds heads 0-5, K/V heads 0, 0, 0, 0, 1, 1) does, as phi3-medium-14b's
-# 40 over 10 does at TP 4.
+# 40 over 10 does at TP 4.  Query heads the model axis does not divide,
+# split by the balanced decomposition as at 16 x 16: "phi3_h10" (10 over
+# 5 K/V heads at TP 4: 3, 3, 2, 2 heads, ranks 0 and 1 holding parts of
+# two groups) and "phi4_h6" (6 over 2 K/V heads, tied embeddings: 2, 2,
+# 1, 1 heads).
 MODELS = {
     "jamba": ("jamba-v0.1-52b", {}),          # (ssm, mlp), (ssm, moe), (attn, mlp)
     "mamba2": ("mamba2-370m", {}),            # ssm only, tied embeddings
@@ -36,6 +40,8 @@ MODELS = {
     "llama4": ("llama4-maverick-400b-a17b", {}),   # top-1, a shared expert
     "glm4": ("glm4-9b", {}),                  # 2 K/V heads
     "phi3_kv3": ("phi3-medium-14b", {"num_heads": 12, "num_kv_heads": 3}),
+    "phi3_h10": ("phi3-medium-14b", {"num_heads": 10, "num_kv_heads": 5}),
+    "phi4_h6": ("phi4-mini-3.8b", {"num_heads": 6, "num_kv_heads": 2}),
 }
 
 # name -> (model, (data, model), kv_layout)
@@ -48,6 +54,10 @@ CASES = {
     "glm4_dp2_tp4_kvdim": ("glm4", (2, 4), "kvdim"),
     "glm4_dp2_tp4_kvseq": ("glm4", (2, 4), "kvseq"),
     "phi3_kv3_dp4_tp2_kvdim": ("phi3_kv3", (4, 2), "kvdim"),
+    "phi3_h10_dp2_tp4_kvdim": ("phi3_h10", (2, 4), "kvdim"),
+    "phi3_h10_dp2_tp4_kvseq": ("phi3_h10", (2, 4), "kvseq"),
+    "phi4_h6_dp2_tp4_kvdim": ("phi4_h6", (2, 4), "kvdim"),
+    "phi4_h6_dp2_tp4_kvseq": ("phi4_h6", (2, 4), "kvseq"),
 }
 
 # the fp32 pin: prefill logits within 1e-3 of scale, greedy tokens equal

@@ -13,6 +13,7 @@ runs the cases.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,11 +24,18 @@ PARAMS_SEED = 0
 BATCH, SEQ = 8, 16
 LR, TOTAL_STEPS = 1e-3, 10
 
-# arch -> depth (None: reduced()'s own).  reduced glm4-9b: 4 query heads
-# and 2 K/V heads, so model = 4 does not divide its K/V heads; kimi-k2
-# (MoE, Adafactor) cut to one block period; mamba2-370m (SSM, tied
-# embeddings) at reduced()'s 2 layers.
-ARCHS = {"glm4-9b": None, "kimi-k2-1t-a32b": 1, "mamba2-370m": None}
+# model -> (arch, overrides of reduced(get_config(arch))).  reduced
+# glm4-9b: 4 query heads and 2 K/V heads, so model = 4 does not divide its
+# K/V heads; kimi-k2 (MoE, Adafactor) cut to one block period;
+# mamba2-370m (SSM, tied embeddings) at reduced()'s 2 layers; "glm4-h6":
+# 6 query heads over 2 K/V heads of 16, which model = 4 does not divide:
+# the reference's spec splits wq's 96 columns 24 a rank (1.5 heads, mid
+# head, as phi3-medium-14b's 5120 at 16) and each rank attends its
+# balanced block of 2, 2, 1 or 1 heads.
+ARCHS = {"glm4-9b": ("glm4-9b", {}),
+         "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {"num_layers": 1}),
+         "mamba2-370m": ("mamba2-370m", {}),
+         "glm4-h6": ("glm4-9b", {"num_heads": 6, "num_kv_heads": 2})}
 
 # name -> (arch, (data, model)) of the port's cases
 CASES = {
@@ -36,6 +44,7 @@ CASES = {
     "glm_dp8_tp1": ("glm4-9b", (8, 1)),
     "kimi_dp2_tp4": ("kimi-k2-1t-a32b", (2, 4)),
     "mamba_dp2_tp4": ("mamba2-370m", (2, 4)),
+    "glm_h6_dp2_tp4": ("glm4-h6", (2, 4)),
 }
 # The reference runs on (2, 4) only, in three JAX children side by side (a
 # jitted program a mesh is most of this file's time): its GSPMD step
@@ -43,18 +52,27 @@ CASES = {
 # these cases its losses at (2, 4), (4, 2) and (8, 1) agree to 7e-8 and
 # its grad norms to 1e-7 relative), so each glm4-9b mesh of the port is
 # held to the reference's (2, 4) run, whose gradients are also written
-# (GRADS_CASE).
+# (GRADS_CASES, as are glm4-h6's).
 REFERENCE = {"glm_dp2_tp4": "glm_dp2_tp4", "glm_dp4_tp2": "glm_dp2_tp4",
              "glm_dp8_tp1": "glm_dp2_tp4", "kimi_dp2_tp4": "kimi_dp2_tp4",
-             "mamba_dp2_tp4": "mamba_dp2_tp4"}
-CHILDREN = {"glm": ("glm_dp2_tp4",), "mamba": ("mamba_dp2_tp4",),
+             "mamba_dp2_tp4": "mamba_dp2_tp4",
+             "glm_h6_dp2_tp4": "glm_h6_dp2_tp4"}
+CHILDREN = {"glm": ("glm_dp2_tp4",),
+            "mamba": ("mamba_dp2_tp4", "glm_h6_dp2_tp4"),
             "kimi": ("kimi_dp2_tp4",)}
-GRADS_CASE = "glm_dp2_tp4"
+GRADS_CASES = ("glm_dp2_tp4", "glm_h6_dp2_tp4")
 CKPT_CASE = "glm_dp2_tp4"
 
 # the pins: tests/md/test_hybrid.py's for the gradients, 2e-5 for the loss
 LOSS_RTOL = 2e-5
 GRAD_TOL = 5e-4
+
+
+def model_config(model, get_config, reduced):
+    """The reduced config of ``model``, from either package's
+    ``configs``."""
+    arch, overrides = ARCHS[model]
+    return dataclasses.replace(reduced(get_config(arch)), **overrides)
 
 
 def batches(vocab: int) -> list:

@@ -11,7 +11,7 @@ once to ``torch_region_cases.params_path(OUT)`` as ``<arch>/<key>``.
 Then, for each case, the jitted ``build_train_step`` on the case's mesh
 under ``Policy(mesh)`` (the reference's defaults: fsdp and seq_shard on),
 the parameters placed by ``param_shardings``, run for two steps (one
-program, called twice), and on ``GRADS_CASE`` first the jitted loss and
+program, called twice), and on ``GRADS_CASES`` first the jitted loss and
 gradients of ``build_loss_fn`` on the first batch: ``<case>/loss``,
 ``<case>/grads/<key>``, ``<case>/step{1,2}/{loss,grad_norm,skipped}``,
 ``<case>/params/<key>``, ``<case>/m/<key>``, ``<case>/v/<key>``,
@@ -20,7 +20,6 @@ gradients of ``build_loss_fn`` on the first batch: ``<case>/loss``,
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 
@@ -52,11 +51,8 @@ def flat(tree, prefix=""):
     return out
 
 
-def config(arch):
-    cfg = reduced(get_config(arch))
-    if C.ARCHS[arch]:
-        cfg = dataclasses.replace(cfg, num_layers=C.ARCHS[arch])
-    return cfg
+def config(model):
+    return C.model_config(model, get_config, reduced)
 
 
 def main(argv):
@@ -86,7 +82,7 @@ def main(argv):
 
         p = jax.device_put(params[arch], pol.param_shardings(params[arch]))
         state = init_train_state(cfg, p, opt)
-        if case == C.GRADS_CASE:
+        if case in C.GRADS_CASES:
             (loss, _), grads = jax.jit(jax.value_and_grad(
                 loss_fn, has_aux=True))(p, b1)
             out[f"{case}/loss"] = np.asarray(loss)

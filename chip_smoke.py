@@ -14,7 +14,9 @@ trained at all 48 layers; and the dry run's predictions (kernel calls,
 peak memory, bound time, traced on ``meta``) are held against three of
 those cells; glm4-9b is also trained by the reference's production step
 (ZeRO-3 over data, TP/SP over model) at mesh (1, 1), and phi3-medium-14b
-at (1, 3) where three cards exist, its 40 query heads split 14, 13, 13.
+at (1, 3) where three cards exist, its 40 query heads split 14, 13, 13;
+there, too, glm4-9b and mamba2-370m are served and mamba2-370m trained
+at (1, 3), where no width of theirs divides by 3.
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 0. device: require CUDA; print the card's name and power limit.
@@ -279,6 +281,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    rank's peak within 2% of ``launch.dryrun.mesh_cell`` traced as that
    rank, its kernel launches and its collectives a step (count and
    bytes) equal to the trace's.  One line ``{"uneven_heads": {...}}``.
+21. uneven_widths: widths the model axis does not divide (d_model,
+   head_dim under ``kvdim``, d_ff, the SSM heads and their d_inner
+   channels), split by the balanced decomposition.  (a) the bf16 flash
+   kernel at the per-rank shapes TP 3 gives glm4-9b (11, 11 and 10 query
+   heads, B 4, S 1024) and the bf16 SSD scan at mamba2-370m's 11 and 10
+   SSM heads a rank (B 8, S 2048, chunk 64) against their plain versions
+   at phase 2's bf16 pins, each timed beside its plain version (and SDPA)
+   and its bound.  (b) and (c) where three cards exist
+   (``tools/uneven_widths_phase_torch.py`` on a 4-card machine), on three
+   NCCL ranks at (data, model) = (1, 3): glm4-9b (40 layers, B 4, prompt
+   1024) and mamba2-370m (48 layers, B 8, prompt 2048) served 32 greedy
+   steps under ``kvdim`` and ``kvseq`` from the per-rank initialiser
+   (launch counts exact, rates, peak memory), cut to 2 layers in fp32
+   and at full depth in bf16 against one card's engine in the same
+   process (``serve_mesh_parity``); mamba2-370m trained 5 bf16 steps of
+   48 layers (B 8, S 2048) after the 2-layer fp32 parity against one
+   card's step (``zero3_spawn``); each rank's serving prefill and first
+   decode step and its train step held to ``launch.dryrun.mesh_cell``
+   traced as that rank: kernel calls and collectives (count and bytes)
+   equal, peak within 2%.  One line ``{"uneven_widths": {...}}``.
 
 Kernel times are device times: the calls are replayed from a CUDA graph,
 so the host's launch cost is not in them.  Backward and train-step times
@@ -320,6 +342,7 @@ from repro_torch.configs import (ModelConfig, get_config,  # noqa: E402
 from repro_torch.core import linop  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core.compile import region  # noqa: E402
+from repro_torch.core.partition import shard_offsets  # noqa: E402
 from repro_torch.core import ring_attention as ring  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -3511,8 +3534,8 @@ def sublayer_shares(name, cfg, params, mine, policy, prompt, max_seq, tol):
         model_blocks.sublayer_apply = plain
     with prim.use_mesh(policy.mesh):
         me = prim.axis_index(policy.model_axis)
-    cols = slice(me * cfg.d_model // policy.model_size,
-                 (me + 1) * cfg.d_model // policy.model_size)
+    offs = shard_offsets(cfg.d_model, policy.model_size)
+    cols = slice(offs[me], offs[me + 1])
     positions = torch.arange(S, device=prompt.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_seq, device=prompt.device, policy=policy)
     shares = []
@@ -3704,8 +3727,9 @@ def mesh_cfg(arch, layers, dtype="bfloat16"):
                                dtype=dtype)
 
 
-def serve_mesh_parity(rank, arch, cfg, run):
-    """This rank of (data, model) = (1, 4): ``arch`` at full width (``cfg``
+def serve_mesh_parity(rank, arch, cfg, run, mesh_shape=SERVE_MESH):
+    """This rank of (data, model) = ``mesh_shape`` ((1, 4) by default):
+    ``arch`` at full width (``cfg``
     gives its depth and dtype), the global parameters drawn on every card
     from one seed; the one-card engine with no policy runs first and its
     results are kept on the host, then the sharded engine on this rank's
@@ -3736,7 +3760,7 @@ def serve_mesh_parity(rank, arch, cfg, run):
                     for i in range(cfg.block_period))
     want = (None if cfg.num_experts and not fp32 else
             teacher_forced(base, prompt, want_tok))
-    mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
+    mesh = launch_mesh.make_host_mesh(mesh_shape, ("data", "model"),
                                       device="cuda")
     mine = shard_params(cfg, params, Policy.for_mesh(mesh))
     if fp32:   # the one-card engine is done: free the global tree
@@ -3753,7 +3777,7 @@ def serve_mesh_parity(rank, arch, cfg, run):
         got_tok = engine.generate(prompt, steps)
         snap = snapshot()
         st = engine.stats
-        name = (f"serve_mesh {SERVE_MESH} {layout} {cfg.dtype} {arch} "
+        name = (f"serve_mesh {mesh_shape} {layout} {cfg.dtype} {arch} "
                 f"{cfg.num_layers} layers rank {rank}")
         if fp32:
             got, want_l, routes = teacher_forced(engine, prompt,
@@ -3785,16 +3809,18 @@ def serve_mesh_parity(rank, arch, cfg, run):
     return out
 
 
-def serve_mesh_full(rank, arch, cfg, smi):
-    """This rank of (1, 4): ``arch`` in bf16 at full width and ``cfg``'s
-    depth, this rank's shards drawn on its card alone
-    (``init_rank_params``), B 4, prompt 1024, 32 greedy steps under each
-    layout: a warm-up request of 2 steps, then the measured one, its
-    launch counts set to 0 just before and read just after
-    (``sharded_launches``, on the tensor cores)."""
-    run = SERVE_MESH_FULL
+def serve_mesh_full(rank, arch, cfg, smi, mesh_shape=SERVE_MESH,
+                    run=SERVE_MESH_FULL, tally=False):
+    """This rank of ``mesh_shape`` ((1, 4) by default): ``arch`` in bf16
+    at full width and ``cfg``'s depth, this rank's shards drawn on its
+    card alone (``init_rank_params``), ``run``'s batch, prompt and greedy
+    steps (B 4, prompt 1024, 32 steps by default) under each layout: a
+    warm-up request of 2 steps, then the measured one, its launch counts
+    set to 0 just before and read just after (``sharded_launches``, on
+    the tensor cores); with ``tally``, then one prefill and decode step
+    measured as the dry run traces them (``serve_step_tally``)."""
     B, S, steps = run["batch"], run["prompt_len"], run["steps"]
-    mesh = launch_mesh.make_host_mesh(SERVE_MESH, ("data", "model"),
+    mesh = launch_mesh.make_host_mesh(mesh_shape, ("data", "model"),
                                       device="cuda")
     t0 = time.perf_counter()
     params = init_rank_params(cfg, Policy.for_mesh(mesh), seed=0,
@@ -3827,6 +3853,8 @@ def serve_mesh_full(rank, arch, cfg, smi):
                        "logits_finite": st["logits_finite"],
                        "decode_profile": decode_profile(engine, prompt)}
         name = f"serve_mesh full {layout} {arch} rank {rank}"
+        if tally:
+            out[layout]["step"] = serve_step_tally(engine, prompt)
         if rank == 0:
             emit(phase="serve_mesh_full", arch=arch, layout=layout,
                  **{k: v for k, v in out.items() if k not in LAYOUTS},
@@ -3836,6 +3864,26 @@ def serve_mesh_full(rank, arch, cfg, smi):
         check_sharded_launches(name, cfg, snap, steps)
         del engine
     return out
+
+
+def serve_step_tally(engine, prompt):
+    """The sharded ``engine``'s prefill of ``prompt`` and the first decode
+    step after it, as ``dryrun.mesh_cell(..., kind="serve")`` traces
+    them: the card's peak memory over them (from what was allocated
+    before, the rank's parameters), their kernel launches and their
+    collectives by kind, count and bytes (``CollectiveTally``)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with CollectiveTally() as tally:
+        logits, cache = engine.prefill(prompt)
+        engine.decode_step(cache, logits.argmax(-1, keepdim=True),
+                           prompt.shape[1])
+        torch.cuda.synchronize()
+    return {"peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": snapshot(),
+            "collectives": {"counts": tally.counts, "bytes": tally.bytes}}
 
 
 def serve_mesh_rank(rank, world_mesh, *, smi, cells):
@@ -3960,13 +4008,19 @@ class PhaseEvents:
         return out
 
 
-def zero3_launches(cfg, steps):
+def zero3_launches(cfg, steps, tp=1):
     """A step of the policy train program under remat: each superblock's
-    forward runs again in the backward, so 2L flash and 2L + 2L + 1 norms
-    (the final norm is outside the checkpoint)."""
-    L = cfg.num_layers
-    return {"flash_attention": 2 * L * steps, "rmsnorm": (4 * L + 1) * steps,
-            "ssd_scan": 0}
+    forward runs again in the backward, so twice a layer's flash or SSD
+    launch and its norms (one before each sublayer; an SSM mixer's gated
+    norm too where the model axis has one rank, ``rmsnorm_sharded``
+    otherwise), and once the final norm, outside the checkpoint: 2L flash
+    and 4L + 1 norms for glm4-9b."""
+    per = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    for i in range(cfg.num_layers):
+        mixer, ffn = cfg.mixer_kind(i), cfg.ffn_kind(i)
+        per["flash_attention" if mixer == "attn" else "ssd_scan"] += 1
+        per["rmsnorm"] += 1 + (ffn != "none") + (mixer == "ssm" and tp == 1)
+    return {k: (2 * v + (k == "rmsnorm")) * steps for k, v in per.items()}
 
 
 def zero3_parity(policy, tol, arch, cut):
@@ -4106,11 +4160,13 @@ def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
         raise AssertionError(f"zero3 train {mesh_shape}: "
                              f"{out['train']['losses']}, skipped "
                              f"{out['train']['skipped']}")
-    want = zero3_launches(cfg, steps)
-    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
-    if snap["launches"] != want or snap["routes"]["flash_attention"] != routes:
+    want = zero3_launches(cfg, steps, mesh_shape[1])
+    routes = {k: {"tensor_core": want[k], "cuda_core": 0}
+              for k in ("flash_attention", "ssd_scan")}
+    if snap["launches"] != want or any(snap["routes"][k] != r
+                                       for k, r in routes.items()):
         raise AssertionError(f"zero3 train {mesh_shape}: launches {snap}, "
-                             f"expected {want}, flash routes {routes}")
+                             f"expected {want}, routes {routes}")
     if peak_run >= CARD_BYTES:
         raise AssertionError(f"zero3 train {mesh_shape}: peak {peak_run} B")
     return out
@@ -4240,16 +4296,24 @@ def uneven_shapes(arch, tp=UNEVEN_TP) -> dict:
 
 def uneven_kernel_checks():
     """(a): the bf16 flash kernel at every per-rank shape of the four archs
-    at TP 16 (B 4, S 1024, causal, K/V as ``_kv_of_local_heads`` lays
-    them out) against its plain version at phase 2's bf16 pin; each timed
-    beside its plain version, SDPA and its bound."""
+    at TP 16 (``flash_rank_rows``)."""
     gen = torch.Generator(device="cuda").manual_seed(20)
+    return flash_rank_rows(gen, UNEVEN_ARCHS, UNEVEN_TP,
+                           "uneven_heads_kernel")
+
+
+def flash_rank_rows(gen, archs, tp, phase):
+    """The bf16 flash kernel at every per-rank shape of ``archs`` over a
+    ``tp``-way model axis (B 4, S 1024, causal, K/V as
+    ``_kv_of_local_heads`` lays them out) against its plain version at
+    phase 2's bf16 pin; each timed beside its plain version, SDPA and its
+    bound, one ``phase`` line a shape."""
     B, S = UNEVEN_ATTN["batch"], UNEVEN_ATTN["seq"]
     dtype = torch.bfloat16
     rows = []
-    for arch in UNEVEN_ARCHS:
+    for arch in archs:
         hd = get_config(arch).resolved_head_dim
-        for (h, kh), ranks in sorted(uneven_shapes(arch).items(),
+        for (h, kh), ranks in sorted(uneven_shapes(arch, tp).items(),
                                      reverse=True):
             q, k, v = (randn((B, S, n, hd), dtype, gen) for n in (h, kh, kh))
             before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
@@ -4274,7 +4338,7 @@ def uneven_kernel_checks():
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
-            emit(phase="uneven_heads_kernel", **row)
+            emit(phase=phase, **row)
             rows.append(row)
     return rows
 
@@ -4349,6 +4413,228 @@ def phase_uneven_heads(smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: widths the model axis does not divide (d_model, head_dim, d_ff,
+# the SSM heads and d_inner), split by the paper's balanced decomposition
+# (``core.partition.balanced_split``; heads by ``head_block``).
+# ---------------------------------------------------------------------------
+
+# (1, 3): glm4-9b's d_model 4096 (1366, 1365, 1365), 32 query heads (11,
+# 11, 10), head_dim 128 under kvdim (43, 43, 42) and d_ff 13696 (4566,
+# 4565, 4565), both K/V heads whole; mamba2-370m's 32 SSM heads (11, 11,
+# 10) and their d_inner channels (704, 704, 640)
+WIDTHS_MESH = (1, 3)
+WIDTHS_SSD = {"batch": 8, "seq": 2048, "chunk": 64}     # mamba2's prefill
+# (b) serving: each arch at all its layers (SERVE's batch, prompt and
+# steps) from the per-rank initialiser and against one card, and cut to 2
+# layers in fp32 against one card
+WIDTHS_SERVE = {GLM: 40, MAMBA: 48}
+# (c) training: mamba2-370m at all 48 layers from the per-rank initialiser
+# (every SSM leaf whole over model, the sequence 683, 683, 682 a rank)
+WIDTHS_TRAIN = {"arch": MAMBA, "parity_layers": 2, "parity_batch": 2,
+                "parity_seq": 256, "layers": 48, "batch": 8, "seq": 2048,
+                "steps": 5, "lr": 1e-3, "rank_init": True}
+WIDTHS_PEAK_TOL = 0.02    # each rank's peak within 2% of the dry run's
+
+
+def widths_kernel_checks():
+    """(a): the bf16 flash kernel at glm4-9b's per-rank shapes at TP 3
+    (``flash_rank_rows``: 11 query heads over one K/V head, 11 over one
+    each, 10 over one) and the bf16 SSD scan at mamba2-370m's 11 and 10
+    heads a rank (B 8, S 2048, P 64, N 128, chunk 64, dt and A drawn as
+    its block makes them) against their plain versions at phase 2's bf16
+    pins, each timed beside its plain version (and SDPA) and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    tp, bf16 = WIDTHS_MESH[1], torch.bfloat16
+    rows = flash_rank_rows(gen, (GLM,), tp, "uneven_widths_kernel")
+    cfg = get_config(MAMBA)
+    B, S, L = WIDTHS_SSD["batch"], WIDTHS_SSD["seq"], WIDTHS_SSD["chunk"]
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    heads = {}
+    for r in range(tp):
+        heads.setdefault(head_block(cfg.ssm_heads, tp, r)[1], []).append(r)
+    for H, ranks in sorted(heads.items(), reverse=True):
+        args = ssd_inputs(B, S, H, P, N, bf16, gen, model=True)
+        before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
+        y, h = ops.ssd_scan(*args, chunk=L)
+        expect_routes("ssd_scan", bf16, before)
+        want_y, want_h = ref.ssd_chunked(*args, chunk=L)
+        shape = f"x ({B},{S},{H},{P}) B/C ({B},{S},{N}) chunk {L}"
+        err = check_close(f"ssd {MAMBA} ranks {ranks} {shape} bf16 y", y,
+                          want_y, SSD_TOL[bf16])
+        err = max(err, check_close(f"ssd {MAMBA} ranks {ranks} {shape} "
+                                   f"h_final", h, want_h,
+                                   SSD_TOL[torch.float32]))
+        bound = card_bound(kernel_cost("ssd_scan", *(t.shape for t in args),
+                                       dtype=bf16, chunk=L), bf16)
+        row = dict(arch=MAMBA, ranks=ranks, shape=shape, route=ROUTES[bf16],
+                   max_abs_err=err,
+                   ms=cuda_ms(lambda: ops.ssd_scan(*args, chunk=L),
+                              iters=10),
+                   plain_ms=cuda_ms(lambda: ref.ssd_chunked(*args, chunk=L),
+                                    iters=3),
+                   library_ms=None, bound_ms=bound["bound_ms"],
+                   bound_by=bound["bound_by"])
+        emit(phase="uneven_widths_kernel", **row)
+        rows.append(row)
+    return rows
+
+
+def widths_serve_rank(rank, world_mesh, *, smi):
+    """(b) on this rank of (1, 3), each arch of WIDTHS_SERVE, the card's
+    memory emptied between runs: its full run from the per-rank
+    initialiser with the prefill and first decode step measured as the
+    dry run traces them (``serve_mesh_full(..., tally=True)``), then
+    against one card: cut to 2 layers in fp32 and at all its layers in
+    bf16 (``serve_mesh_parity``)."""
+    out = {"rank": rank}
+    for arch, layers in WIDTHS_SERVE.items():
+        res = out[arch] = {"parity": {}}
+        res["full"] = serve_mesh_full(rank, arch, mesh_cfg(arch, layers), smi,
+                                      WIDTHS_MESH, SERVE[arch], tally=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for depth, dtype, run in ((2, "float32", SERVE_MESH_PARITY),
+                                  (layers, "bfloat16", SERVE[arch])):
+            res["parity"][dtype] = serve_mesh_parity(
+                rank, arch, mesh_cfg(arch, depth, dtype), run, WIDTHS_MESH)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def widths_traces(cells):
+    """``dryrun.mesh_cell(**kw)`` for each ``{key: kw}`` of ``cells``, each
+    in a process of its own (a fake world each), all at once: the host
+    traces, on ``meta``, what the cards ran.  Returns ``{key: result}``."""
+    import concurrent.futures
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(cells), 8), mp_context=ctx) as pool:
+        futures = {key: pool.submit(dryrun.mesh_cell, **kw)
+                   for key, kw in cells.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
+def held_to_trace(name, pred, peak, launches, collectives):
+    """A rank's card measurement against ``dryrun.mesh_cell``'s trace of
+    it: the kernel calls and the collectives (count and bytes) equal, the
+    peak within WIDTHS_PEAK_TOL.  Returns the comparison."""
+    pred_peak = pred["memory"]["peak_per_device_GiB"] * 2**30
+    calls = {k: v for k, v in launches["launches"].items() if v}
+    coll = {k: pred["collectives"][k] for k in ("counts", "bytes")}
+    out = {"predicted_peak_bytes": pred_peak, "card_peak_bytes": peak,
+           "peak_ratio": pred_peak / peak,
+           "kernel_calls": pred["kernel_calls"], "card_launches": calls,
+           "collectives": coll, "card_collectives": collectives,
+           "roofline": pred["roofline"], "trace_s": pred["trace_s"]}
+    emit(phase="uneven_widths_dryrun", case=name,
+         **{k: v for k, v in out.items() if k != "roofline"})
+    if pred["kernel_calls"] != calls:
+        raise AssertionError(f"{name}: dry run calls {pred['kernel_calls']},"
+                             f" card {calls}")
+    if coll != collectives:
+        raise AssertionError(f"{name}: dry run collectives {coll}, card "
+                             f"{collectives}")
+    if abs(pred_peak / peak - 1) > WIDTHS_PEAK_TOL:
+        raise AssertionError(f"{name}: predicted peak {pred_peak} B, card "
+                             f"{peak} B")
+    return out
+
+
+def widths_mesh(smi):
+    """(b) and (c), three cards or more: serving (``widths_serve_rank``)
+    on three NCCL ranks, every rank's greedy tokens equal; training
+    (``zero3_spawn``, mamba2-370m at (1, 3): the 2-layer fp32 parity
+    against one card's step, then 5 bf16 steps of 48 layers from the
+    per-rank initialiser, every rank's losses equal and finite); then each
+    rank of each serving layout and of training held to
+    ``dryrun.mesh_cell`` traced as that rank (``held_to_trace``).
+    Returns (the results, the launch counts by path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn(functools.partial(widths_serve_rank, smi=smi),
+                              math.prod(WIDTHS_MESH), device="cuda",
+                              timeout_s=1800)
+    for r in ranks:
+        for arch in WIDTHS_SERVE:
+            if mesh_tokens(r, arch) != mesh_tokens(ranks[0], arch):
+                raise AssertionError(f"uneven widths {arch}: rank "
+                                     f"{r['rank']} disagrees on the greedy "
+                                     f"tokens")
+    serve_s = time.perf_counter() - t0
+    train, total = zero3_spawn(smi, "mamba2_1x3", WIDTHS_MESH, True,
+                               WIDTHS_TRAIN, PARITY_TOL)
+    run = WIDTHS_TRAIN
+    cells = {("train", r): dict(arch=MAMBA, layers=run["layers"],
+                                batch=run["batch"], seq=run["seq"],
+                                mesh_shape=WIDTHS_MESH, rank=r)
+             for r in range(WIDTHS_MESH[1])}
+    for arch, layers in WIDTHS_SERVE.items():
+        sv = SERVE[arch]
+        for layout in LAYOUTS:
+            for r in range(WIDTHS_MESH[1]):
+                cells[(arch, layout, r)] = dict(
+                    arch=arch, layers=layers, batch=sv["batch"],
+                    seq=sv["prompt_len"], mesh_shape=WIDTHS_MESH, rank=r,
+                    kind="serve", kv_layout=layout,
+                    max_seq=sv["prompt_len"] + sv["steps"] + 8)
+    t1 = time.perf_counter()
+    preds = widths_traces(cells)
+    held = {"trace_wall_s": time.perf_counter() - t1, "train": [],
+            "serve": []}
+    for r in train["ranks"]:
+        me = r["coordinate"]["model"]
+        held["train"].append(held_to_trace(
+            f"uneven widths train rank {me}", preds[("train", me)],
+            r["split_step_peak_bytes"], r["split_step_launches"],
+            r["collectives_a_step"]))
+    for r in ranks:
+        for arch in WIDTHS_SERVE:
+            for layout in LAYOUTS:
+                step = r[arch]["full"][layout]["step"]
+                held["serve"].append(held_to_trace(
+                    f"uneven widths serve {arch} {layout} rank {r['rank']}",
+                    preds[(arch, layout, r["rank"])], step["peak_bytes"],
+                    step["launches"], step["collectives"]))
+    res = {"serve": ranks, "serve_s": serve_s, "train": train,
+           "dryrun": held, "seconds": time.perf_counter() - t0}
+    paths = {f"uneven widths train bf16 {WIDTHS_MESH} {MAMBA}": total,
+             f"uneven widths train parity fp32 {WIDTHS_MESH} {MAMBA}":
+                 train["parity"]["launches"]}
+    for arch in WIDTHS_SERVE:
+        for layout in LAYOUTS:
+            paths[f"uneven widths serve {layout} {WIDTHS_MESH} {arch}"] = \
+                ranks[0][arch]["full"][layout]["launches"]
+            for dtype, run in ranks[0][arch]["parity"].items():
+                paths[f"uneven widths serve parity {dtype} {layout} "
+                      f"{WIDTHS_MESH} {arch}"] = run[layout]["launches"]
+    return res, paths
+
+
+def phase_uneven_widths(smi, out_path=None):
+    """Phase 21, ``uneven_widths``: (a) the flash and SSD kernels at the
+    per-rank shapes TP 3 gives glm4-9b and mamba2-370m, on one card; (b)
+    and (c) where three cards exist (``widths_mesh``).  Prints
+    ``{"uneven_widths": ...}``, and writes it to ``out_path`` if given;
+    returns the launch counts by path."""
+    t0 = time.perf_counter()
+    out = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "mesh": WIDTHS_MESH, "kernels": widths_kernel_checks()}
+    paths = {}
+    if torch.cuda.device_count() >= math.prod(WIDTHS_MESH):
+        out["cards"], paths = widths_mesh(smi)
+    out["seconds"] = time.perf_counter() - t0
+    line = json.dumps({"uneven_widths": out})
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(line + "\n")
+    print(line, flush=True)
+    return paths
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -4376,6 +4662,7 @@ def main():
     by_path.update(phase_serve_sharded(smi))
     by_path.update(phase_zero3(smi))
     by_path.update(phase_uneven_heads(smi))
+    by_path.update(phase_uneven_widths(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
         "flash_attention_fp32": ("flash_attention", "cuda_core"),

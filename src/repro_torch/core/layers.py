@@ -49,6 +49,7 @@ from . import linop
 from . import overlap
 from . import primitives as prim
 from .compile import current_ctx, dist_jit
+from .partition import balanced_split, shard_offsets
 
 __all__ = [
     # context-aware API (call inside dist_jit)
@@ -102,16 +103,16 @@ def _on_root(axis) -> float:
 
 def shard_slice(x, axis, dim: int):
     """Restriction to this worker's block along ``dim``: the transpose-glue
-    half of a repartition (adjoint: zero-pad back, by autograd)."""
+    half of a repartition (adjoint: zero-pad back, by autograd).  Where
+    the axis does not divide the dim, the block is the paper's ceil-first
+    balanced one (``partition.balanced_split``): the first ranks hold one
+    element more."""
     axis = _ax(axis)
     if axis is None:
         return x
-    k = prim.axis_size(axis)
-    n = x.shape[dim]
-    if n % k:
-        raise ValueError(f"shard_slice: dim {dim} size {n} not divisible by "
-                         f"axis {axis!r} size {k}")
-    return x.narrow(dim, prim.axis_index(axis) * (n // k), n // k)
+    k, i = prim.axis_size(axis), prim.axis_index(axis)
+    offs = shard_offsets(x.shape[dim], k)
+    return x.narrow(dim, offs[i], offs[i + 1] - offs[i])
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +159,9 @@ def affine_gather(x, w, b=None, *, axis: str):
     Local shapes: x (..., f_loc) feature-sharded over ``axis``; w (f_tot,
     o_loc) with output columns sharded.  Under explicit_tp the gather
     rides the ring matmul (each hop overlapping a partial GEMM); otherwise
-    the unfused B-then-GEMM form.
+    the unfused B-then-GEMM form.  x is this rank's block of the balanced
+    split of f_tot, unequal where the axis does not divide it (the ring
+    matmuls take equal blocks only).
     """
     axis = _ax(axis)
     if axis is None:
@@ -166,7 +169,8 @@ def affine_gather(x, w, b=None, *, axis: str):
     elif _explicit_tp():
         y = overlap.ring_allgather_matmul(x, w, axis)
     else:
-        y = linop.AllGather(axis, x.dim() - 1)(x) @ w
+        y = prim.all_gather(x, axis, x.dim() - 1, balanced_split(
+            w.shape[0], prim.axis_size(axis))) @ w
     return y if b is None else y + b
 
 
@@ -174,8 +178,9 @@ def affine_scatter(x, w, b=None, *, axis: str):
     """``reduce_scatter(x @ w, dim=-1)``: the partitioned-sum-reduce affine.
 
     Local shapes: x (..., f_loc) the contraction shard; w (f_loc, o_tot).
-    Output (..., o_tot / k) scattered over ``axis``.  Under explicit_tp the
-    scatter rides the ring matmul.
+    Output (..., o_tot / k) scattered over ``axis``: this rank's block of
+    the balanced split of o_tot, unequal where the axis does not divide
+    it.  Under explicit_tp the scatter rides the ring matmul.
     """
     axis = _ax(axis)
     if axis is None:
@@ -183,7 +188,8 @@ def affine_scatter(x, w, b=None, *, axis: str):
     elif _explicit_tp():
         y = overlap.ring_matmul_reducescatter(x, w, axis)
     else:
-        y = linop.ReduceScatter(axis, x.dim() - 1)(x @ w)
+        y = prim.reduce_scatter(x @ w, axis, x.dim() - 1, balanced_split(
+            w.shape[1], prim.axis_size(axis)))
     return y if b is None else y + b
 
 

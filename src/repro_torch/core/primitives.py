@@ -59,7 +59,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -195,24 +195,57 @@ def _back(out: torch.Tensor, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def _all_gather(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
-    """Tiled all-gather along ``dim``: the k blocks in axis order."""
+def _all_gather(x: torch.Tensor, ax: _Axis, dim: int,
+                sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Tiled all-gather along ``dim``: the k blocks in axis order.  With
+    unequal ``sizes`` (rank i holds ``sizes[i]`` of ``dim``: the balanced
+    split of a dim the axis does not divide) it is one
+    ``all_to_all_single`` that sends this rank's block to every rank,
+    since gloo's all-gather takes equal blocks only; equal sizes take the
+    even all-gather."""
     xt = _front(x, dim)
-    out = xt.new_empty((ax.size * xt.shape[0],) + xt.shape[1:])
-    dist.all_gather_into_tensor(out, xt, group=ax.group)
+    if sizes is None or len(set(sizes)) == 1:
+        out = xt.new_empty((ax.size * xt.shape[0],) + xt.shape[1:])
+        dist.all_gather_into_tensor(out, xt, group=ax.group)
+    else:
+        if xt.shape[0] != sizes[ax.index]:
+            raise ValueError(f"all_gather: dim {dim} size {xt.shape[0]}, "
+                             f"rank {ax.index} of {ax.name!r} holds "
+                             f"{sizes[ax.index]}")
+        out = xt.new_empty((sum(sizes),) + xt.shape[1:])
+        dist.all_to_all_single(out, torch.cat([xt] * ax.size),
+                               output_split_sizes=list(sizes),
+                               input_split_sizes=[xt.shape[0]] * ax.size,
+                               group=ax.group)
     out = _back(out, dim)
     _record("all-gather", ax, x, out, dim)
     return out
 
 
-def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
-    """Tiled reduce-scatter along ``dim``: block i of the sum to rank i."""
+def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int,
+                    sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Tiled reduce-scatter along ``dim``: block i of the sum to rank i.
+    With unequal ``sizes`` (block i holds ``sizes[i]`` of ``dim``) one
+    ``all_to_all_single`` sends block j to rank j and each rank sums the
+    k blocks it received, in axis order; equal sizes take the even
+    reduce-scatter."""
     xt = _front(x, dim)
-    if xt.shape[0] % ax.size:
-        raise ValueError(f"reduce_scatter: dim {dim} size {xt.shape[0]} not "
-                         f"divisible by axis {ax.name!r} size {ax.size}")
-    out = xt.new_empty((xt.shape[0] // ax.size,) + xt.shape[1:])
-    _REDUCE_SCATTER(out, xt, group=ax.group)
+    if sizes is None or len(set(sizes)) == 1:
+        if xt.shape[0] % ax.size:
+            raise ValueError(f"reduce_scatter: dim {dim} size {xt.shape[0]} "
+                             f"not divisible by axis {ax.name!r} size "
+                             f"{ax.size}")
+        out = xt.new_empty((xt.shape[0] // ax.size,) + xt.shape[1:])
+        _REDUCE_SCATTER(out, xt, group=ax.group)
+    else:
+        if xt.shape[0] != sum(sizes):
+            raise ValueError(f"reduce_scatter: dim {dim} size {xt.shape[0]}, "
+                             f"blocks {list(sizes)}")
+        n = sizes[ax.index]
+        recv = xt.new_empty((ax.size * n,) + xt.shape[1:])
+        dist.all_to_all_single(recv, xt, output_split_sizes=[n] * ax.size,
+                               input_split_sizes=list(sizes), group=ax.group)
+        out = recv.view((ax.size, n) + xt.shape[1:]).sum(0)
     out = _back(out, dim)
     _record("reduce-scatter", ax, x, out, dim)
     return out
@@ -231,29 +264,6 @@ def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
     dist.all_to_all_single(recv, send, group=ax.group)
     out = torch.cat(recv.unbind(0), dim=concat_dim)
     _record("all-to-all", ax, x, out, concat_dim)
-    return out
-
-
-def _all_gather_v(x: torch.Tensor, ax: _Axis, dim: int,
-                  sizes: Sequence[int]) -> torch.Tensor:
-    """``_all_gather`` of unequal blocks: rank i holds ``sizes[i]`` of
-    ``dim``.  One ``all_to_all_single`` that sends this rank's block to
-    every rank (gloo's all-gather takes equal blocks only); equal sizes
-    take ``_all_gather`` itself."""
-    if len(set(sizes)) == 1:
-        return _all_gather(x, ax, dim)
-    xt = _front(x, dim)
-    if xt.shape[0] != sizes[ax.index]:
-        raise ValueError(f"all_gather_v: dim {dim} size {xt.shape[0]}, "
-                         f"rank {ax.index} of {ax.name!r} holds "
-                         f"{sizes[ax.index]}")
-    out = xt.new_empty((sum(sizes),) + xt.shape[1:])
-    dist.all_to_all_single(out, torch.cat([xt] * ax.size),
-                           output_split_sizes=list(sizes),
-                           input_split_sizes=[xt.shape[0]] * ax.size,
-                           group=ax.group)
-    out = _back(out, dim)
-    _record("all-gather", ax, x, out, dim)
     return out
 
 
@@ -486,35 +496,45 @@ def all_reduce(x: torch.Tensor, axis_name) -> torch.Tensor:
 
 class _AllGather(Function):
     @staticmethod
-    def forward(ctx, x, ax, dim):
-        ctx.ax, ctx.dim = ax, dim
-        return _all_gather(x, ax, dim)
+    def forward(ctx, x, ax, dim, sizes):
+        ctx.args = (ax, dim, sizes)
+        return _all_gather(x, ax, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.ax, ctx.dim), None, None
+        return _reduce_scatter(g, *ctx.args), None, None, None
 
 
-def all_gather(x: torch.Tensor, axis_name, dim: int) -> torch.Tensor:
-    """Partitioned broadcast along tensor dim ``dim``; adjoint reduce-scatter.
-    Each rank's gathered copy is its own (the output is stacked)."""
-    return _AllGather.apply(x, _axis(axis_name), dim)
+def _sizes(sizes):
+    return None if sizes is None else tuple(sizes)
+
+
+def all_gather(x: torch.Tensor, axis_name, dim: int,
+               sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Partitioned broadcast along tensor dim ``dim``; adjoint reduce-scatter
+    with the same ``sizes``.  Each rank's gathered copy is its own (the
+    output is stacked).  ``sizes`` gives each rank's block of ``dim`` where
+    they differ (the balanced split of a dim the axis does not divide)."""
+    return _AllGather.apply(x, _axis(axis_name), dim, _sizes(sizes))
 
 
 class _ReduceScatter(Function):
     @staticmethod
-    def forward(ctx, x, ax, dim):
-        ctx.ax, ctx.dim = ax, dim
-        return _reduce_scatter(x, ax, dim)
+    def forward(ctx, x, ax, dim, sizes):
+        ctx.args = (ax, dim, sizes)
+        return _reduce_scatter(x, ax, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.ax, ctx.dim), None, None
+        return _all_gather(g, *ctx.args), None, None, None
 
 
-def reduce_scatter(x: torch.Tensor, axis_name, dim: int) -> torch.Tensor:
-    """Partitioned sum-reduce; adjoint = all-gather (partitioned broadcast)."""
-    return _ReduceScatter.apply(x, _axis(axis_name), dim)
+def reduce_scatter(x: torch.Tensor, axis_name, dim: int,
+                   sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Partitioned sum-reduce; adjoint = all-gather (partitioned broadcast)
+    with the same ``sizes``: rank i gets the sum over the axis of block i
+    of ``dim``, of ``sizes[i]`` where the blocks differ."""
+    return _ReduceScatter.apply(x, _axis(axis_name), dim, _sizes(sizes))
 
 
 # The replicated pair.  _GatherReplicated: stacked blocks -> one replicated
@@ -597,8 +617,9 @@ def all_to_all(x: torch.Tensor, axis_name, split_dim: int,
 # ---------------------------------------------------------------------------
 # Unequal blocks: the paper's balanced decomposition (``core/partition.py``,
 # ``balanced_split``) of a dim the axis does not divide, e.g. query heads
-# over the model axis.  The gather's result is consumed identically on
-# every rank, so its adjoint is the restriction to the rank's own block
+# or d_model over the model axis.  The partitioned pair is ``all_gather``
+# and ``reduce_scatter`` with ``sizes``.  The replicated gather's result is consumed identically on every rank, so its
+# adjoint is the restriction to the rank's own block
 # (``all_gather_replicated``'s); the v-style all-to-all is a block
 # permutation, whose adjoint is the reverse all-to-all.
 # ---------------------------------------------------------------------------
@@ -607,7 +628,7 @@ class _GatherReplicatedV(Function):
     @staticmethod
     def forward(ctx, x, ax, dim, sizes):
         ctx.ax, ctx.dim, ctx.sizes = ax, dim, sizes
-        return _all_gather_v(x, ax, dim, sizes)
+        return _all_gather(x, ax, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):

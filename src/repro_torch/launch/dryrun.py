@@ -62,12 +62,14 @@ REFUSALS = (NotImplementedError,)
 
 
 def trace_serve(cfg, *, batch: int, prompt_len: int, policy=None,
-                kind: str = "both"):
+                kind: str = "both", max_seq: int | None = None):
     """Trace ``ServeEngine``'s ``prefill`` of a (batch, prompt_len) prompt
     (``kind`` "prefill"), one ``decode_step`` against a full cache of
-    ``prompt_len`` positions ("decode"), or both in order ("both"), on
-    ``meta`` (this rank's shards under ``policy``).  Returns the trace;
-    the parameters (and the decode cache) count as live from the start."""
+    ``prompt_len`` positions ("decode"), or both in order ("both": the
+    first decode step after the prompt), on ``meta`` (this rank's shards
+    under ``policy``).  ``max_seq``: the engine's cache length, by
+    default the least the program needs.  Returns the trace; the
+    parameters (and the decode cache) count as live from the start."""
     from repro_torch.launch.specs import param_specs
     from repro_torch.models import init_cache, shard_params
     from repro_torch.roofline.hlo_profile import Trace
@@ -76,7 +78,7 @@ def trace_serve(cfg, *, batch: int, prompt_len: int, policy=None,
     if policy is not None:
         params = shard_params(cfg, params, policy)
     # decode alone attends a full cache: the new token takes its last slot
-    max_seq = prompt_len + (kind != "decode")
+    max_seq = max_seq or prompt_len + (kind != "decode")
     engine = ServeEngine(cfg, params, policy, max_seq=max_seq,
                          batch_size=batch)
     tokens = torch.empty((batch, prompt_len), dtype=torch.long,
@@ -94,7 +96,8 @@ def trace_serve(cfg, *, batch: int, prompt_len: int, policy=None,
             _, cache = engine.prefill(tokens)
         if kind in ("decode", "both"):
             tok = torch.empty((rows, 1), dtype=torch.long, device="meta")
-            engine.decode_step(cache, tok, max_seq - 1)
+            engine.decode_step(cache, tok, prompt_len if kind == "both"
+                               else max_seq - 1)
     return tr
 
 
@@ -276,14 +279,18 @@ def world1_cell(kind: str, arch: str, layers: int, batch: int,
 
 
 def mesh_cell(arch: str, layers: int, batch: int, seq: int,
-              mesh_shape: tuple, rank: int = 0) -> dict:
-    """The policy train program of ``arch`` cut to ``layers`` at a
-    caller's (data, model) ``mesh_shape``, batch and sequence: ``rank`` of
-    a fake world of that size traces one step (``Policy(mesh)``, the
-    reference's defaults), so the card's run of the same cell can be held
-    against it (its peak, collectives, kernel calls).  Ranks differ where
-    the model axis does not divide the query heads (the first hold one
-    head more)."""
+              mesh_shape: tuple, rank: int = 0, kind: str = "train",
+              kv_layout: str = "kvdim", max_seq: int | None = None) -> dict:
+    """One program of ``arch`` cut to ``layers`` at a caller's (data,
+    model) ``mesh_shape``, batch and sequence, traced by ``rank`` of a fake
+    world of that size, so the card's run of the same cell can be held
+    against it (its peak, collectives, kernel calls).  ``kind`` "train":
+    one step of the policy train program (``Policy(mesh)``, the
+    reference's defaults); "serve": ``ServeEngine``'s prefill of a
+    (batch, seq) prompt and the first decode step after it under
+    ``Policy.for_mesh(mesh, kv_layout=)``, the engine's cache ``max_seq``
+    long (``trace_serve``).  Ranks differ where the model axis does not
+    divide a width (the first hold one head, column or channel more)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -297,13 +304,22 @@ def mesh_cell(arch: str, layers: int, batch: int, seq: int,
     try:
         mesh = launch_mesh.make_host_mesh(mesh_shape, device="meta",
                                           all_ranks_group=True)
-        tr = trace_train(cfg, batch=batch, seq=seq, policy=Policy(mesh))
+        if kind == "train":
+            tr = trace_train(cfg, batch=batch, seq=seq, policy=Policy(mesh))
+        else:
+            tr = trace_serve(cfg, batch=batch, prompt_len=seq,
+                             policy=Policy.for_mesh(mesh,
+                                                    kv_layout=kv_layout),
+                             max_seq=max_seq)
     finally:
         dist.destroy_process_group()
-    out = {"kind": "train", "arch": arch, "layers": layers, "batch": batch,
+    out = {"kind": kind, "arch": arch, "layers": layers, "batch": batch,
            "seq": seq, "mesh": list(mesh_shape), "rank": rank,
            "source": SOURCE}
-    out.update(summarize(tr, cfg, "train_4k", chips))
+    if kind != "train":
+        out.update(kv_layout=kv_layout, max_seq=max_seq)
+    out.update(summarize(tr, cfg, "train_4k" if kind == "train"
+                         else "prefill_32k", chips))
     for key in ("model_flops_global", "useful_flops_ratio", "mfu_bound"):
         out["roofline"].pop(key)
     out["trace_s"] = round(time.time() - t0, 1)

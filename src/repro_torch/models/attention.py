@@ -30,7 +30,9 @@ Where the model axis does not divide the query heads (40 over 16), they
 split by the paper's ceil-first balanced decomposition (``head_block``:
 ranks 0-7 hold 3 heads, 8-15 hold 2), the same in serving and in the
 policy train program; the K/V heads are then whole as well, and q moves
-by the primitives' collectives of unequal blocks.
+by the primitives' collectives of unequal blocks.  Under ``kvdim`` a
+head_dim the model axis does not divide (glm4-9b's 128 over 3) splits the
+same way: 43, 43 and 42 columns of every K/V head a rank.
 """
 
 from __future__ import annotations
@@ -139,8 +141,9 @@ def attention_block_tp(p, h, cfg, policy, *, positions, mode="train",
                        cache=None, index: int = 0, cache_len=None):
     """Explicit-TP attention sub-layer on LOCAL blocks (inside a region).
 
-    h: (B_loc, S, d_model/tp): the residual stream is FEATURE-sharded over
-    the model axis, so the qkv projections are gather-affines (the paper's
+    h: (B_loc, S, d_loc): the residual stream is FEATURE-sharded over the
+    model axis (the balanced split of d_model where the axis does not
+    divide it), so the qkv projections are gather-affines (the paper's
     partitioned broadcast B fused with the GEMM as a ring matmul under
     ``policy.explicit_tp``) and the output projection is a scatter-affine
     (the GEMM fused with the adjoint reduce-scatter R).  Heads stay sharded
@@ -194,7 +197,7 @@ def attention_block_sp(p, specs, h, cfg, policy, *, positions, fsdp_axes):
     """The attention sub-layer of the policy train program on this rank
     (``models.forward`` under a policy with ``seq_shard``).
 
-    h: (B/dp, S/tp, d), the normed residual's sequence shard; ``p``: this
+    h: (B/dp, S_loc, d), the normed residual's sequence shard; ``p``: this
     rank's blocks of wq, wk, wv, wo laid out by ``specs`` (ZeRO-3 over the
     fsdp axes, heads over ``model``).  The sequence is gathered, each
     weight gathered over the fsdp axes right before its use, q on this
@@ -218,7 +221,7 @@ def attention_block_sp(p, specs, h, cfg, policy, *, positions, fsdp_axes):
     kv_axes = fsdp_axes + ((ax,) if kv_whole else ())
     q_axes = fsdp_axes + ((ax,) if q_whole else ())
     first, n = local_heads(cfg, policy)
-    x = seq_gather(h, ax)
+    x = seq_gather(h, ax, positions.shape[1])
     wq = gather_block(p["wq"], specs["wq"], q_axes)
     if q_whole:
         wq = wq[:, first * hd:(first + n) * hd]
@@ -290,18 +293,24 @@ def _heads_to(dim: int, policy) -> Repartition:
 
 def _prefill_cache_tp(k, v, cache, index: int, policy, kv_whole=False):
     """The prompt's K/V into this rank's part of the cache: under ``kvdim``
-    the head_dim split (B, S, KH, hd/tp) into the first S positions; under
-    ``kvseq`` the sequence split of the whole (padded) buffer, (B, S_buf,
-    KH, hd) a rank, zeros past the prompt.  k, v: this rank's heads,
-    (B, S, KH/tp, hd), moved by ``Repartition``; with ``kv_whole`` every
-    K/V head, (B, S, KH, hd), of which the rank keeps its part."""
-    me = prim.axis_index(policy.model_axis)
+    its block of the head_dim split (B, S, KH, hd_loc; the balanced split
+    where the model axis does not divide head_dim) into the first S
+    positions; under ``kvseq`` the sequence split of the whole (padded)
+    buffer, (B, S_buf, KH, hd) a rank, zeros past the prompt.  k, v: this
+    rank's heads, (B, S, KH/tp, hd), moved by an all-to-all (``kvdim``) or
+    ``Repartition`` (``kvseq``); with ``kv_whole`` every K/V head, (B, S,
+    KH, hd), of which the rank keeps its part."""
+    ax, tp = policy.model_axis, policy.model_size
+    me = prim.axis_index(ax)
     for name, t in (("k", k), ("v", v)):
         buf = cache[name][index]
         if policy.kv_layout == "kvdim":
-            d_loc = buf.shape[3]
-            buf[:, :t.shape[1]] = (t[..., me * d_loc:(me + 1) * d_loc]
-                                   if kv_whole else _heads_to(3, policy)(t))
+            hd = t.shape[3]
+            lo = shard_offsets(hd, tp)[me]
+            buf[:, :t.shape[1]] = (
+                t[..., lo:lo + buf.shape[3]] if kv_whole else
+                prim.all_to_all_v(t, ax, 3, 2, balanced_split(hd, tp),
+                                  [t.shape[2]] * tp))
         elif kv_whole:
             part = t[:, me * buf.shape[1]:(me + 1) * buf.shape[1]]
             buf.zero_()
@@ -323,7 +332,11 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, cfg, policy,
     (it then does not divide the K/V heads either: H = group x KH):
     under ``kvdim`` an ``all_to_all_v`` to the head_dim split and back,
     under ``kvseq`` an ``all_gather_replicated_v``.  Scores, softmax and
-    the p.v contraction in fp32, as ``decode_attention``."""
+    the p.v contraction in fp32, as ``decode_attention``.  Under ``kvdim``
+    the head_dim blocks are the balanced split where the model axis does
+    not divide head_dim (glm4-9b's 128 over 3: 43, 43, 42): the score
+    all-reduce sums the blocks' partial dot products, whatever their
+    widths."""
     ax = policy.model_axis
     tp = policy.model_size
     B, _, h_loc, hd = q.shape
@@ -337,17 +350,19 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, cfg, policy,
     k_cache, v_cache = cache["k"][index], cache["v"][index]
     me = prim.axis_index(ax)
     if policy.kv_layout == "kvdim":
-        d_loc = hd // tp
+        d_sizes = balanced_split(hd, tp)
+        d_loc, lo = d_sizes[me], shard_offsets(hd, tp)[me]
         if kv_whole:
             # only q moves: every rank holds every K/V head whole
-            q = prim.all_to_all_v(q, ax, 3, 2, [d_loc] * tp, counts)
+            q = prim.all_to_all_v(q, ax, 3, 2, d_sizes, counts)
             q = q.reshape(B, H, d_loc)
-            k, v = (t[..., me * d_loc:(me + 1) * d_loc].reshape(B, KH, d_loc)
+            k, v = (t[..., lo:lo + d_loc].reshape(B, KH, d_loc)
                     for t in (k, v))
         else:
             # one all-to-all moves q, k and v to the head_dim split; the
             # blocks arrive rank-major, each rank's heads in global order
-            moved = _heads_to(3, policy)(torch.cat([q, k, v], dim=2))
+            moved = prim.all_to_all_v(torch.cat([q, k, v], dim=2), ax, 3, 2,
+                                      d_sizes, [h_loc + 2 * kh_loc] * tp)
             moved = moved.reshape(B, 1, tp, -1, d_loc)
             q = moved[:, :, :, :h_loc].reshape(B, H, d_loc)
             k = moved[:, :, :, h_loc:h_loc + kh_loc].reshape(B, KH, d_loc)
@@ -364,7 +379,7 @@ def _decode_tp(q, k, v, cache, index: int, cache_len: int, cfg, policy,
         o = torch.einsum("bkgs,bskh->bkgh", p.to(q.dtype).float(),
                          v_cache.float())
         o = o.reshape(B, 1, H, d_loc).to(q.dtype)
-        return prim.all_to_all_v(o, ax, 2, 3, counts, [d_loc] * tp)
+        return prim.all_to_all_v(o, ax, 2, 3, counts, d_sizes)
     # kvseq: q, k, v gathered whole; the owner of position cache_len
     # writes it; every rank attends over its own block (flash-decoding)
     if kv_whole:

@@ -66,17 +66,18 @@ def sublayer_init(cfg, layer: int, dtype, generator, stacked: int) -> dict:
 
 
 def check_serve_policy(cfg, policy):
-    """Refuse what sharded serving does not cover, before anything runs: a
-    mesh axis besides ``data`` and ``model`` and a ``kv_layout`` other
-    than ``kvdim`` and ``kvseq`` (``ValueError``); a width that sharded
-    serving splits over the model axis and the axis does not divide
-    (``NotImplementedError``, naming each): d_model (the residual's
-    features), under ``kvdim`` head_dim, d_ff, the SSM heads and d_inner,
-    the experts (the reference refuses those too, ``moe.py``'s expert
-    split) and the shared experts' hidden width.  Head counts the axis
-    does not divide are served: ``wk`` and ``wv`` stay whole on every
-    rank, and the query heads split by the balanced decomposition
-    (``attention_block_tp``, ``attention.head_block``)."""
+    """Refuse what sharded serving does not cover, before anything runs,
+    as the reference refuses it: a mesh axis besides ``data`` and
+    ``model`` and a ``kv_layout`` other than ``kvdim`` and ``kvseq``
+    (``ValueError``); an expert count the model axis does not divide
+    (``NotImplementedError``; the reference's expert split raises there,
+    ``repro/models/moe.py:71-78``).  Every other width is served, split
+    by the paper's balanced decomposition where the axis does not divide
+    it, never padded: d_model (the residual's features), the query heads
+    (``attention.head_block``; ``wk`` and ``wv`` whole on every rank
+    where the K/V heads do not divide), head_dim under ``kvdim``, d_ff
+    and the shared experts' d_ff, and the SSM heads with their d_inner
+    channels (``ssm.ssm_block_of``)."""
     extra = [n for n in policy.axis_names
              if n not in (policy.data_axis, policy.model_axis)
              and policy.axis_size(n) > 1]
@@ -85,26 +86,20 @@ def check_serve_policy(cfg, policy):
                          f"mesh also has {extra}")
     if policy.kv_layout not in ("kvdim", "kvseq"):
         raise ValueError(f"kv_layout {policy.kv_layout!r}: kvdim or kvseq")
-    kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
-    mixers, ffns = {m for m, _ in kinds}, {f for _, f in kinds}
-    widths = {"d_model": cfg.d_model}
-    if "attn" in mixers and policy.kv_layout == "kvdim":
-        widths["head_dim (kvdim)"] = cfg.resolved_head_dim
-    if "ssm" in mixers:
-        widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
-    if "mlp" in ffns:
-        widths["d_ff"] = cfg.d_ff
-    if "moe" in ffns:
-        widths["num_experts"] = cfg.num_experts
-        if cfg.num_shared_experts:
-            widths["shared experts' d_ff"] = ((cfg.moe_d_ff or cfg.d_ff)
-                                              * cfg.num_shared_experts)
+    _check_experts(cfg, policy, "sharded serving")
+
+
+def _check_experts(cfg, policy, program: str):
+    """``NotImplementedError`` where ``cfg`` has MoE layers whose expert
+    count the model axis does not divide."""
+    moe = any(layer_kinds(cfg, i)[1] == "moe"
+              for i in range(cfg.block_period))
     tp = policy.model_size
-    bad = {k: v for k, v in widths.items() if v % tp}
-    if bad:
+    if moe and cfg.num_experts % tp:
         raise NotImplementedError(
-            f"sharded serving of {cfg.name} splits {sorted(widths)} over "
-            f"the model axis: {bad} not divisible by its size {tp}")
+            f"{program} of {cfg.name} splits ['num_experts'] over the model "
+            f"axis: {{'num_experts': {cfg.num_experts}}} not divisible by "
+            f"its size {tp}")
 
 
 def is_sp_policy(policy) -> bool:
@@ -122,14 +117,15 @@ def is_sp_policy(policy) -> bool:
 def check_train_policy(cfg, policy):
     """Refuse what the policy train program does not cover, before
     anything runs: a mesh axis besides pod, data and model, or a policy
-    without ``seq_shard`` (``ValueError``); a width the program splits
-    over the model axis that the axis does not divide
-    (``NotImplementedError``, naming each): the SSM heads and d_inner,
-    and the experts.  Head counts the axis does not divide are trained:
-    wk and wv, or wq and wo, are gathered whole and each rank takes the
-    heads it attends, its query heads by the balanced decomposition
-    (``attention_block_sp``); a d_ff or vocabulary the axis does not
-    divide stays whole, as the reference's ``param_spec`` leaves it."""
+    without ``seq_shard`` (``ValueError``); an expert count the model
+    axis does not divide (``NotImplementedError``, as the reference).
+    Every other width trains: a leaf whose dim the model axis does not
+    divide stays whole over it, as the reference's ``param_spec`` leaves
+    it, and each rank takes its balanced block of the heads it computes:
+    the query heads (``wq``/``wo``), the K/V heads its query heads attend
+    (``attention_block_sp``), the SSM heads and their d_inner channels
+    (``ssm_block_sp``); a d_ff or vocabulary the axis does not divide is
+    computed whole on every rank."""
     extra = [n for n in policy.axis_names
              if n not in (policy.pod_axis, policy.data_axis,
                           policy.model_axis) and policy.axis_size(n) > 1]
@@ -139,29 +135,19 @@ def check_train_policy(cfg, policy):
     if not policy.seq_shard:
         raise ValueError("the policy train program shards the residual's "
                          "sequence over the model axis: seq_shard=True")
-    kinds = {layer_kinds(cfg, i) for i in range(cfg.block_period)}
-    widths = {}
-    if any(m == "ssm" for m, _ in kinds):
-        widths.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.d_inner)
-    if any(f == "moe" for _, f in kinds):
-        widths["num_experts"] = cfg.num_experts
-    tp = policy.model_size
-    bad = {k: v for k, v in widths.items() if v % tp}
-    if bad:
-        raise NotImplementedError(
-            f"the policy train program of {cfg.name} splits {sorted(widths)}"
-            f" over the model axis: {bad} not divisible by its size {tp}")
+    _check_experts(cfg, policy, "the policy train program")
 
 
 def superblock_apply_sp(p, specs, x, cfg, policy, *, positions, fsdp_axes):
     """One superblock of the policy train program on this rank: ``x`` the
-    residual's (B/dp, S/tp, d) shard, ``p`` this rank's blocks of the
+    residual's (B/dp, S_loc, d) shard (the balanced split of S), ``p`` this rank's blocks of the
     superblock's leaves laid out by ``specs`` (without the stack dim).
     Each layer: x + mixer(norm(x)); x + ffn(norm(x)), the norms on the
     sequence shard through the RMSNorm kernel, each sublayer gathering
     the sequence and its weights inside.  Returns (x, aux), aux the MoE
     load-balance loss summed over the period."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    seq = positions.shape[1]
     for i in range(cfg.block_period):
         mixer, ffn = layer_kinds(cfg, i)
         pp, ss = subtree(p, f"pos{i}"), subtree(specs, f"pos{i}")
@@ -173,16 +159,16 @@ def superblock_apply_sp(p, specs, x, cfg, policy, *, positions, fsdp_axes):
                                        fsdp_axes=fsdp_axes)
         else:
             x = x + ssm_block_sp(subtree(pp, "ssm"), subtree(ss, "ssm"), h,
-                                 cfg, policy, fsdp_axes=fsdp_axes)
+                                 cfg, policy, fsdp_axes=fsdp_axes, seq=seq)
         if ffn == "none":
             continue
         h = rmsnorm(x, pp["norm_ffn"])
         if ffn == "mlp":
             x = x + mlp_apply_sp(h, subtree(pp, "mlp"), subtree(ss, "mlp"),
-                                 cfg.mlp_type, policy, fsdp_axes)
+                                 cfg.mlp_type, policy, fsdp_axes, seq)
         else:
             y, aux_i = moe_apply_sp(h, subtree(pp, "moe"), subtree(ss, "moe"),
-                                    cfg, policy, fsdp_axes)
+                                    cfg, policy, fsdp_axes, seq)
             x = x + y
             aux = aux + aux_i
     return x, aux
@@ -213,14 +199,18 @@ def _tp_sublayer_body(p, x, positions, cfg, policy, ffn, *, mixer="attn",
     """Whole sublayer on local blocks: ONE region spans both the mixer and
     FFN halves, so their ring matmuls (qkv-gather, out-scatter, up-gather,
     down-scatter) can overlap compute across the halves.
-    x: (B_loc, S, d_model/tp).  In prefill and decode (sharded serving)
+    x: (B_loc, S, d_loc), this rank's block of d_model (the balanced
+    split in serving where the axis does not divide it; ``_tp_fusable``
+    keeps the training regions to widths it divides).  In prefill and
+    decode (sharded serving)
     ``cache``/``index``/``cache_len`` reach the mixer, which is attention
     (``attention_block_tp``) or, in serving only, the SSM mixer on this
     rank's heads (``ssm_block_tp``); ``ffn`` is the dense MLP on this
-    rank's d_ff block, none, or in serving the MoE FFN on this rank's
-    experts (``moe_serve_body``)."""
+    rank's d_ff block (the balanced split where the axis does not divide
+    it), none, or in serving the MoE FFN on this rank's experts
+    (``moe_serve_body``)."""
     ax = policy.model_axis
-    h = rmsnorm_sharded(x, p["norm_mixer"], ax)
+    h = rmsnorm_sharded(x, p["norm_mixer"], ax, cfg.d_model)
     if mixer == "attn":
         x = x + attention_block_tp(subtree(p, "attn"), h, cfg, policy,
                                    positions=positions, mode=mode,
@@ -231,7 +221,7 @@ def _tp_sublayer_body(p, x, positions, cfg, policy, ffn, *, mixer="attn",
                              cache=cache, index=index)
     if ffn == "none":
         return x
-    h = rmsnorm_sharded(x, p["norm_ffn"], ax)
+    h = rmsnorm_sharded(x, p["norm_ffn"], ax, cfg.d_model)
     if ffn == "moe":
         return x + moe_serve_body(h, subtree(p, "moe"), cfg, policy)
     mp = subtree(p, "mlp")
@@ -387,7 +377,7 @@ def pipeline_stage_body(p_stage, x, cfg, policy, *, positions):
                     ax = policy.model_axis
                     x = _tp_sublayer_body(pp, x, positions, cfg, policy,
                                           "none")
-                    h = rmsnorm_sharded(x, pp["norm_ffn"], ax)
+                    h = rmsnorm_sharded(x, pp["norm_ffn"], ax, cfg.d_model)
                     h = prim.all_gather_replicated(h, ax, 2)
                     y, aux_i = moe_stage_body(h, subtree(pp, "moe"), cfg,
                                               ep_axis=ep_axis,

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import primitives as prim
+from repro_torch.core.partition import balanced_split, shard_offsets
 from repro_torch.kernels import ops
 from repro_torch.tree import subtree  # noqa: F401  (re-exported)
 
@@ -23,11 +24,12 @@ def rmsnorm(x, w, eps: float = 1e-6):
     return ops.rmsnorm(x, w, eps)
 
 
-def rmsnorm_sharded(x, w, axis, eps: float = 1e-6):
+def rmsnorm_sharded(x, w, axis, d: int, eps: float = 1e-6):
     """RMSNorm with the FEATURE dim sharded over ``axis`` (the explicit-TP
-    residual layout): the mean of squares is assembled in fp32 with the
-    paper's sum-reduce R over ``axis``; w is the matching local shard.
-    Call inside a ``dist_jit`` region.
+    residual layout): the mean of squares over the global width ``d`` is
+    assembled in fp32 with the paper's sum-reduce R over ``axis``; x and
+    w are this rank's blocks of it, equal or, where the axis does not
+    divide ``d``, the balanced split's.  Call inside a ``dist_jit`` region.
 
     The sum is ``all_reduce``: inside a region a replicated result's
     cotangent is a per-rank contribution (``core/compile.py``), and the
@@ -37,7 +39,6 @@ def rmsnorm_sharded(x, w, axis, eps: float = 1e-6):
     kernel-free form, as in the reference: the kernel normalises whole rows.
     """
     xf = x.float()
-    d = x.shape[-1] * prim.axis_size(axis)
     ss = prim.all_reduce((xf * xf).sum(-1, keepdim=True), axis)
     out = xf * torch.rsqrt(ss / d + eps)
     return (out * w.float()).to(x.dtype)
@@ -79,37 +80,44 @@ def gather_block(w, spec, axes):
     return w
 
 
-def seq_gather(h, axis):
-    """The sequence-sharded residual ``h`` (B, S/tp, ...) gathered whole
-    over ``axis`` (B, S, ...) before a sublayer's column-parallel
-    projections; its adjoint reduce-scatters the contributions."""
-    return prim.all_gather(h, axis, 1) if prim.axis_size(axis) > 1 else h
+def seq_gather(h, axis, seq: int):
+    """The sequence-sharded residual ``h`` (B, S_loc, ...) gathered whole
+    over ``axis`` (B, ``seq``, ...) before a sublayer's column-parallel
+    projections; its adjoint reduce-scatters the contributions.  The
+    blocks are the balanced split of ``seq`` (equal where the axis
+    divides it)."""
+    tp = prim.axis_size(axis)
+    return prim.all_gather(h, axis, 1, balanced_split(seq, tp)) \
+        if tp > 1 else h
 
 
 def seq_scatter(y, axis, partial: bool):
     """A sublayer's (B, S, d) output back onto this rank's sequence block
-    over ``axis``: reduce-scattered when each rank holds a partial sum
-    (a row-parallel projection), sliced when every rank computed the whole
-    (a width the axis does not split; the slice's adjoint zero-pads).  The
-    result is contiguous: the RMSNorm kernel takes whole rows."""
+    over ``axis`` (the balanced split of S): reduce-scattered when each
+    rank holds a partial sum (a row-parallel projection), sliced when
+    every rank computed the whole (a width the axis does not split; the
+    slice's adjoint zero-pads).  The result is contiguous: the RMSNorm
+    kernel takes whole rows."""
     tp = prim.axis_size(axis)
     if tp == 1:
         return y
     if partial:
-        return prim.reduce_scatter(y, axis, 1)
-    n = y.shape[1] // tp
-    return y.narrow(1, prim.axis_index(axis) * n, n).contiguous()
+        return prim.reduce_scatter(y, axis, 1,
+                                     balanced_split(y.shape[1], tp))
+    offs = shard_offsets(y.shape[1], tp)
+    me = prim.axis_index(axis)
+    return y.narrow(1, offs[me], offs[me + 1] - offs[me]).contiguous()
 
 
-def mlp_apply_sp(h, p, specs, mlp_type: str, policy, fsdp_axes):
+def mlp_apply_sp(h, p, specs, mlp_type: str, policy, fsdp_axes, seq: int):
     """The dense FFN (or the shared experts') on this rank's d_ff block:
-    ``h`` (B, S/tp, d) normed and sequence-sharded, ``p`` this rank's
-    blocks laid out by ``specs`` (each leaf's spec without the stack dim).
-    The sequence is gathered, the up / gate blocks are column-parallel and
-    w_down's row block reduce-scatters the partial sums back onto the
-    sequence shard."""
+    ``h`` (B, S_loc, d) normed and sequence-sharded (``seq`` the global
+    length), ``p`` this rank's blocks laid out by ``specs`` (each leaf's
+    spec without the stack dim).  The sequence is gathered, the up / gate
+    blocks are column-parallel and w_down's row block reduce-scatters the
+    partial sums back onto the sequence shard."""
     ax = policy.model_axis
-    x = seq_gather(h, ax)
+    x = seq_gather(h, ax, seq)
     up = x @ gather_block(p["w_up"], specs["w_up"], fsdp_axes)
     if mlp_type == "swiglu":
         up = F.silu(x @ gather_block(p["w_gate"], specs["w_gate"],

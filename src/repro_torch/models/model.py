@@ -30,6 +30,7 @@ from repro_torch.core import layers as L
 from repro_torch.core import primitives as prim
 from repro_torch.core.compile import local_blocks, region
 from repro_torch.core.linop import PartitionSpec as P
+from repro_torch.core.partition import balanced_split, shard_offsets
 from repro_torch.device import resolve_device
 from repro_torch.sharding import Partitioned
 
@@ -40,6 +41,7 @@ from .blocks import (check_serve_policy, check_train_policy, is_sp_policy,
 from .common import (dense_init, gather_block, normal_init, rmsnorm,
                      seq_gather, seq_scatter, spec_axes, spec_names, subtree)
 from .moe import EXPERT_LEAVES
+from .ssm import ssm_block_of
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -235,16 +237,18 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
     ``cfg.dtype`` and ``pos{i}.ssm`` (n_super, B, H, P, N) in float32.
 
     With a serve ``policy``, this rank's part of the global ``batch``'s
-    cache: B / data rows, and under ``kvdim`` head_dim / model columns
-    (n_super, B/dp, max_seq, KH, hd/tp); under ``kvseq`` one contiguous
-    block of ceil(max_seq / tp) positions (n_super, B/dp, ceil(max_seq /
-    tp), KH, hd).  Where tp does not divide max_seq the blocks cover a
-    buffer rounded up to a multiple of tp (GSPMD pads the reference's the
-    same way); decode masks every position past ``cache_len``, the padding
-    included.  KH is every K/V head under either layout.  An SSM
-    position's states are this rank's channels and heads, whatever the
-    layout: conv (n_super, B/dp, k-1, d_inner/tp), ssm (n_super, B/dp,
-    H/tp, P, N)."""
+    cache: B / data rows, and under ``kvdim`` its block of head_dim's
+    columns (n_super, B/dp, max_seq, KH, hd_loc), the balanced split of
+    head_dim where the model axis does not divide it; under ``kvseq`` one
+    contiguous block of ceil(max_seq / tp) positions (n_super, B/dp,
+    ceil(max_seq / tp), KH, hd).  Where tp does not divide max_seq the
+    blocks cover a buffer rounded up to a multiple of tp (GSPMD pads the
+    reference's the same way); decode masks every position past
+    ``cache_len``, the padding included.  KH is every K/V head under
+    either layout.  An SSM position's states are this rank's SSM heads
+    (``ssm.local_ssm_heads``) and their channels, whatever the layout:
+    conv (n_super, B/dp, k-1, H_loc x P), ssm (n_super, B/dp, H_loc, P,
+    N)."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     n_super = cfg.num_layers // cfg.block_period
@@ -253,13 +257,15 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
     if policy is not None:
         check_serve_policy(cfg, policy)
         dp, tp = policy.dp_size, policy.model_size
-        d_inner, ssm_heads = d_inner // tp, ssm_heads // tp
+        me = _model_index(policy)
+        ssm_heads = head_block(ssm_heads, tp, me)[1]
+        d_inner = ssm_heads * cfg.ssm_head_dim
         if batch % dp:
             raise ValueError(f"batch {batch} not divisible by the data "
                              f"axis's size {dp}")
         batch //= dp
         if policy.kv_layout == "kvdim":
-            hd //= tp
+            hd = balanced_split(hd, tp)[me]
         else:
             max_seq = -(-max_seq // tp)
     cache = {}
@@ -289,9 +295,11 @@ def init_cache(cfg, batch: int, max_seq: int, device=None,
 # vectors, row blocks of out_proj; in_B and in_C whole); an MoE FFN's
 # experts on their E dim (the logical "experts"), the router whole and
 # the shared experts as the MLP; wk and wv whole where the model axis does
-# not divide the K/V heads, and wq's columns and wo's rows cut by the
-# balanced split of the query heads where it does not divide those; the
-# embedding, final norm and head whole.
+# not divide the K/V heads; the embedding, final norm and head whole.
+# Where the axis does not divide a width, its blocks are the paper's
+# balanced split, aligned to heads: wq's columns and wo's rows by the
+# query heads (``attention.head_block``), the SSM leaves by the SSM heads
+# (``ssm.ssm_block_of``), d_model and d_ff by ``balanced_split``.
 # ---------------------------------------------------------------------------
 
 _SERVE_SPLIT = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_up": 2,
@@ -309,8 +317,9 @@ def _serve_block(cfg, key: str, shape: tuple, tp: int, index: int):
     (global ``shape``, its leading dim the stack) for sharded serving over
     a model axis of size ``tp``; None where the leaf is whole.  wq's
     columns and wo's rows are the rank's query heads
-    (``attention.head_block``: the balanced split where the axis does not
-    divide them); every other split leaf is cut into equal blocks."""
+    (``attention.head_block``), an SSM leaf's block its SSM heads or their
+    channels (``ssm.ssm_block_of``); every other split leaf is cut by the
+    balanced split of its dim (equal blocks where tp divides it)."""
     if not key.startswith("blocks."):
         return None
     name = key.rsplit(".", 1)[-1]
@@ -321,8 +330,11 @@ def _serve_block(cfg, key: str, shape: tuple, tp: int, index: int):
         hd = cfg.resolved_head_dim
         first, n = head_block(cfg.num_heads, tp, index)
         return dim, first * hd, n * hd
-    n = shape[dim] // tp
-    return dim, index * n, n
+    if ".ssm." in key:
+        d, first, n = ssm_block_of(cfg, name, tp, index)
+        return d + 1, first, n
+    offs = shard_offsets(shape[dim], tp)
+    return dim, offs[index], offs[index + 1] - offs[index]
 
 
 def _model_index(policy) -> int:
@@ -492,10 +504,11 @@ def _forward_sp(params, batch, cfg, policy):
     ``params``: this rank's blocks (``shard_train_params``,
     ``init_rank_train_params``); ``batch``: this rank's rows of the global
     batch, ``{"tokens": (B/dp, S)}`` or ``{"embeds": (B/dp, S, d)}``.  The
-    residual is (B/dp, S/tp, d) between sublayers.  The embedding lookup
-    is vocab-parallel where the model axis splits the vocabulary: rows
-    outside this rank's block are masked and the partial rows
-    reduce-scattered onto the sequence shard, so ``embed`` gets its
+    residual is (B/dp, S_loc, d) between sublayers, S_loc this rank's
+    block of the balanced split of S (S/tp where the axis divides it).
+    The embedding lookup is vocab-parallel where the model axis splits the
+    vocabulary: rows outside this rank's block are masked and the partial
+    rows reduce-scattered onto the sequence shard, so ``embed`` gets its
     gradient once.  Each superblock runs under ``torch.utils.checkpoint``
     when ``cfg.remat`` is set, its weight gathers inside: autograd keeps
     only the residual a superblock, and the backward gathers again.  The
@@ -507,7 +520,6 @@ def _forward_sp(params, batch, cfg, policy):
     check_train_policy(cfg, policy)
     specs = train_param_specs(cfg, policy)
     ax, fs = policy.model_axis, fsdp_axes(policy)
-    tp = policy.model_size
     dtype = DTYPES[cfg.dtype]
     with region(policy):
         vocab = _vocab_split(specs, cfg, policy)
@@ -528,9 +540,6 @@ def _forward_sp(params, batch, cfg, policy):
             else:
                 x = seq_scatter(embed_lookup(table, tokens), ax, False)
             x = x.to(dtype)
-        if S % tp:
-            raise ValueError(f"sequence length {S} not divisible by the "
-                             f"model axis's size {tp}")
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         layers = {k: v.unbind(0) for k, v in subtree(params, "blocks").items()}
         blk_specs = {k: P(*tuple(v)[1:])
@@ -549,7 +558,7 @@ def _forward_sp(params, batch, cfg, policy):
             else:
                 x, aux_s = run(x, *leaves)
             aux = aux + aux_s
-        x = seq_gather(rmsnorm(x, params["norm_final"]), ax)
+        x = seq_gather(rmsnorm(x, params["norm_final"]), ax, S)
         if cfg.tie_embeddings:
             logits = x @ gather_block(params["embed"], specs["embed"], fs).T
         else:
@@ -587,7 +596,8 @@ def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
     ``init_rank_params``), ``batch`` this rank's rows, ``cache`` this
     rank's part of ``init_cache(..., policy=)``, which prefill fills in
     place as decode does; the logits are this rank's rows.  The residual
-    runs feature-sharded over the model axis, as the TP train sublayer's,
+    runs feature-sharded over the model axis, as the TP train sublayer's
+    (the balanced split of d_model where the axis does not divide it),
     and is gathered whole for the final norm and the head.
     """
     if mode == "train" and is_sp_policy(policy):
@@ -628,7 +638,8 @@ def forward(params, batch, cfg, *, mode="train", cache=None, policy=None):
             kv_per_block.append(kv)
             aux = aux + aux_s
         if serving:
-            x = prim.all_gather(x, policy.model_axis, 2)
+            x = prim.all_gather(x, policy.model_axis, 2, balanced_split(
+                cfg.d_model, policy.model_size))
 
     if mode == "prefill" and not serving:
         new_cache = {k: torch.stack([kv[k] for kv in kv_per_block])

@@ -55,9 +55,11 @@ from repro_torch.core import primitives as prim
 from repro_torch.core.compile import dist_jit
 from repro_torch.core.linop import AllToAll, CapacityRestrict
 from repro_torch.core.linop import PartitionSpec as P
+from repro_torch.core.partition import balanced_split
 
 from .common import (dense_init, mlp_apply, mlp_apply_sp, mlp_init,
-                     normal_init, spec_names, subtree)
+                     normal_init, seq_gather, seq_scatter, spec_names,
+                     subtree)
 
 EXPERT_LEAVES = ("we_up", "we_gate", "we_down")
 
@@ -259,10 +261,11 @@ def moe_stage_body(x, p, cfg, *, ep_axis=None, stat_axes=()):
 def moe_serve_body(h, p, cfg, policy):
     """The MoE FFN for sharded serving, inside the serving region.
 
-    h: (B_loc, S, d_model/tp), the normed residual feature-sharded over
-    the model axis; p: the whole router, this rank's E/tp experts (a
-    block of the E dim of ``we_up``, ``we_gate``, ``we_down``) and its
-    d_ff blocks of the shared experts' SwiGLU.  h is gathered whole once;
+    h: (B_loc, S, d_loc), the normed residual feature-sharded over the
+    model axis (the balanced split of d_model); p: the whole router, this
+    rank's E/tp experts (a block of the E dim of ``we_up``, ``we_gate``,
+    ``we_down``) and its d_ff block of the shared experts' SwiGLU (the
+    balanced split where the axis does not divide it).  h is gathered whole once;
     routing, the slot plan and the capacity (over this replica's B_loc x
     S tokens) are the same on every model rank; each rank runs its own
     experts over their capacity slots and combines a partial output in
@@ -271,11 +274,12 @@ def moe_serve_body(h, p, cfg, policy):
     feature split.  The reference's ``moe_apply`` region dispatches the
     replicated tokens with an ``AllToAll`` on the model axis, which runs
     every expert tp times; both compute the same function up to the
-    order of summation.  Returns (B_loc, S, d_model/tp)."""
+    order of summation.  Returns (B_loc, S, d_loc)."""
     ax = policy.model_axis
     tp = policy.model_size
     _check_expert_split(cfg, tp, ax)
-    x = prim.all_gather(h, ax, 2)
+    d_sizes = balanced_split(cfg.d_model, tp)
+    x = prim.all_gather(h, ax, 2, d_sizes)
     B, S, d = x.shape
     e_loc = cfg.num_experts // tp
     lo = prim.axis_index(ax) * e_loc
@@ -291,31 +295,40 @@ def moe_serve_body(h, p, cfg, policy):
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
         y = y + mlp_apply(x, subtree(p, "shared"), "swiglu")
-    return prim.reduce_scatter(y, ax, 2)
+    return prim.reduce_scatter(y, ax, 2, d_sizes)
 
 
-def moe_apply_sp(h, p, specs, cfg, policy, fsdp_axes):
+def moe_apply_sp(h, p, specs, cfg, policy, fsdp_axes, seq: int):
     """The MoE FFN of the policy train program on this rank
     (``models.forward`` under a policy with ``seq_shard``): the body of the
     reference's ``moe_apply`` region on the tokens this rank holds.
 
-    h: (B/dp, S/tp, d), the normed residual's sequence shard: the tokens of
+    h: (B/dp, S_loc, d), the normed residual's sequence shard (``seq``
+    the global length): the tokens of
     the reference's region boundary ``P(batch, seq, None)``, so routing
     and the capacity are over them, as there.  ``p``: the router (whole),
     this rank's E/tp experts (the EP-over-model overload of "experts")
     with their d_model dim over the fsdp axes, gathered inside
     (``moe_block_fn``), and the shared experts' blocks, run as the dense
     FFN (``mlp_apply_sp``).  The load-balance loss is the mean over every
-    mesh axis of each rank's statistic, the reference's.  Returns (y on
+    mesh axis of each rank's statistic, the reference's.  Where the model
+    axis does not divide ``seq``, the reference's boundary leaves the
+    sequence whole (its ``fits``), so every model rank routes the whole
+    sequence, gathered, and keeps its block of the output.  Returns (y on
     the sequence shard, aux)."""
+    ax = policy.model_axis
     fsdp = any(spec_names(specs["we_up"], 1, a) for a in fsdp_axes)
-    y, aux = moe_block_fn(h, {k: p[k] for k in ("router",) + EXPERT_LEAVES},
-                          cfg, ep_axis=policy.model_axis,
+    whole = seq % policy.model_size != 0
+    y, aux = moe_block_fn(seq_gather(h, ax, seq) if whole else h,
+                          {k: p[k] for k in ("router",) + EXPERT_LEAVES},
+                          cfg, ep_axis=ax,
                           fsdp_axes=fsdp_axes if fsdp else (), fsdp=fsdp,
                           all_axes=tuple(policy.axis_names))
+    if whole:
+        y = seq_scatter(y, ax, False)
     if cfg.num_shared_experts:
         y = y + mlp_apply_sp(h, subtree(p, "shared"), subtree(specs, "shared"),
-                             "swiglu", policy, fsdp_axes)
+                             "swiglu", policy, fsdp_axes, seq)
     return y, aux
 
 

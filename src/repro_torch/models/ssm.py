@@ -14,7 +14,14 @@ runs the mixer on its own SSM heads: the reference's split
 per-head vectors over ``model``, out_proj by rows, in_B and in_C whole)
 with its heads over ``model`` (``repro/models/ssm.py:157-158``).  The conv
 and the scan are head-local, so the only collectives are the features'
-gather, the gated norm's all-reduce and out_proj's reduce-scatter.
+gather, the gated norm's all-reduce and out_proj's reduce-scatter.  Where
+the model axis does not divide the SSM heads (mamba2-370m's 32 over 3),
+each rank holds its block of the paper's balanced split of the heads
+(``local_ssm_heads``: 11, 11, 10) and the d_inner channels of those heads
+(704, 704, 640): a block of d_inner aligned to heads, never a cut through
+one.  The policy train program leaves such leaves whole over ``model``,
+as the reference's ``param_spec``, and each rank takes the same block of
+them.
 """
 
 from __future__ import annotations
@@ -26,11 +33,21 @@ import torch.nn.functional as F
 
 from repro_torch.core import layers as L
 from repro_torch.core import primitives as prim
+from repro_torch.core.partition import balanced_split
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-exported)
 
+from .attention import head_block
 from .common import (dense_init, gather_block, normal_init, rmsnorm,
                      rmsnorm_sharded, seq_gather, seq_scatter)
+
+# the leaves split over ``model`` along their SSM heads, and the dim: per
+# head (in_dt's columns, the per-head vectors) or per channel, head_dim of
+# them a head (in_z's and in_x's columns, conv_w's channels, ssm_norm,
+# out_proj's rows)
+HEAD_LEAVES = {"in_dt": 1, "a_log": 0, "d_skip": 0, "dt_bias": 0}
+CHANNEL_LEAVES = {"in_z": 1, "in_x": 1, "conv_w": 1, "ssm_norm": 0,
+                  "out_proj": 0}
 
 
 def ssm_init(cfg, dtype, generator, stacked: int = 0) -> dict:
@@ -142,26 +159,49 @@ def ssm_block(p, x, cfg, *, mode, cache=None, index: int = 0):
     return out, state
 
 
+def ssm_block_of(cfg, name: str, tp: int, index: int):
+    """``(dim, start, length)`` of rank ``index``'s block of the SSM leaf
+    ``name`` (unstacked) over a ``tp``-way model axis: its heads
+    (``head_block`` of the SSM heads) or those heads' channels; None
+    for a leaf every rank holds whole (in_B, in_C)."""
+    first, n = head_block(cfg.ssm_heads, tp, index)
+    if name in HEAD_LEAVES:
+        return HEAD_LEAVES[name], first, n
+    if name in CHANNEL_LEAVES:
+        pd = cfg.ssm_head_dim
+        return CHANNEL_LEAVES[name], first * pd, n * pd
+    return None
+
+
+def local_ssm_heads(cfg, policy) -> tuple[int, int]:
+    """``head_block`` of the SSM heads for this rank along ``policy``'s
+    model axis."""
+    return head_block(cfg.ssm_heads, policy.model_size,
+                      prim.axis_index(policy.model_axis))
+
+
 def ssm_block_tp(p, h, cfg, policy, *, mode, cache, index: int = 0):
     """The Mamba2 sub-layer on this rank's SSM heads, for sharded serving
     (prefill and decode, inside the serving region).
 
-    h: (B_loc, S, d_model/tp), the normed residual feature-sharded over
-    the model axis.  p: this rank's shards (module docstring).  The
-    features are gathered once; z, x and dt come from this rank's column
-    blocks, B and C from the whole in_B and in_C; the causal conv runs on
-    this rank's d_inner/tp channels and the scan (``ops.ssd_scan`` in
-    prefill, ``ssd_decode_step`` in decode) on its H/tp heads with the
-    whole B and C; the gated norm's mean of squares is over the global
-    d_inner (``rmsnorm_sharded``); out_proj's row block reduce-scatters
-    into the residual's feature split.  ``cache``: this rank's part of
-    ``models.init_cache(..., policy=)``; prefill writes the prompt's final
-    conv and SSM states into ``cache["conv"][index]`` and
-    ``cache["ssm"][index]`` in place, decode reads and updates them.
-    Returns the sub-layer's output, (B_loc, S, d_model/tp)."""
+    h: (B_loc, S, d_loc), the normed residual feature-sharded over the
+    model axis (the balanced split of d_model).  p: this rank's shards
+    (module docstring).  The features are gathered once; z, x and dt come
+    from this rank's column blocks, B and C from the whole in_B and in_C;
+    the causal conv runs on this rank's channels and the scan
+    (``ops.ssd_scan`` in prefill, ``ssd_decode_step`` in decode) on its
+    heads (``local_ssm_heads``) with the whole B and C; the gated norm's
+    mean of squares is over the global d_inner (``rmsnorm_sharded``);
+    out_proj's row block reduce-scatters into the residual's feature
+    split.  ``cache``: this rank's part of ``models.init_cache(...,
+    policy=)``; prefill writes the prompt's final conv and SSM states into
+    ``cache["conv"][index]`` and ``cache["ssm"][index]`` in place, decode
+    reads and updates them.  Returns the sub-layer's output, (B_loc, S,
+    d_loc)."""
     ax = policy.model_axis
-    nh, pd = cfg.ssm_heads // policy.model_size, cfg.ssm_head_dim
-    x = prim.all_gather(h, ax, 2)
+    nh, pd = local_ssm_heads(cfg, policy)[1], cfg.ssm_head_dim
+    x = prim.all_gather(h, ax, 2, balanced_split(cfg.d_model,
+                                                   policy.model_size))
     z = x @ p["in_z"]
     xs = x @ p["in_x"]
     Bm = x @ p["in_B"]
@@ -181,13 +221,14 @@ def ssm_block_tp(p, h, cfg, policy, *, mode, cache, index: int = 0):
         y, h_new = ops.ssd_scan(xh, dt, a_neg, Bm, Cm,
                                 chunk=min(64, xs.shape[1]))
     y = y + (p["d_skip"][None, None, :, None] * xh.float()).to(y.dtype)
-    y = rmsnorm_sharded(y.reshape(xs.shape) * F.silu(z), p["ssm_norm"], ax)
+    y = rmsnorm_sharded(y.reshape(xs.shape) * F.silu(z), p["ssm_norm"], ax,
+                        cfg.d_inner)
     conv.copy_(new_conv)
     ssm.copy_(h_new)
     return L.affine_scatter(y, p["out_proj"], axis=ax)
 
 
-def ssm_block_sp(p, specs, h, cfg, policy, *, fsdp_axes):
+def ssm_block_sp(p, specs, h, cfg, policy, *, fsdp_axes, seq: int):
     """The Mamba2 sub-layer of the policy train program on this rank
     (``models.forward`` under a policy with ``seq_shard``), on its SSM
     heads: the reference's ``param_spec`` split (in_z, in_x, in_dt,
@@ -195,33 +236,44 @@ def ssm_block_sp(p, specs, h, cfg, policy, *, fsdp_axes):
     in_B and in_C on the fsdp axes only), each weight gathered over the
     fsdp axes right before its use.
 
-    h: (B/dp, S/tp, d), the normed residual's sequence shard.  The
-    sequence is gathered whole (the conv and the scan run over all of it,
-    on this rank's d_inner/tp channels and H/tp heads, through
-    ``ops.ssd_scan``); B and C come from the whole in_B and in_C, the same
-    on every model rank; the gated norm's mean of squares is over the
-    global d_inner (``rmsnorm_sharded``; the kernel when the model axis
-    has one rank); out_proj's row block reduce-scatters the partial
-    output back onto the sequence shard."""
+    h: (B/dp, S_loc, d), the normed residual's sequence shard (``seq``
+    the global length).  The sequence is gathered whole (the conv and the scan run over all of it,
+    on this rank's channels and heads, through ``ops.ssd_scan``); B and C
+    come from the whole in_B and in_C, the same on every model rank; the
+    gated norm's mean of squares is over the global d_inner
+    (``rmsnorm_sharded``; the kernel when the model axis has one rank);
+    out_proj's row block reduce-scatters the partial output back onto the
+    sequence shard.  Where ``model`` does not divide the SSM heads, every
+    leaf split by heads or channels is gathered whole over ``model`` too
+    (the spec leaves it whole where the axis does not divide its dim) and
+    each rank takes its head-aligned block (``ssm_block_of``); its
+    gradient returns through the gather's adjoint or, for a leaf the spec
+    leaves whole, the sum over ``model`` after the backward, each rank
+    contributing zero outside its block."""
     ax = policy.model_axis
     tp = policy.model_size
-    nh, pd = cfg.ssm_heads // tp, cfg.ssm_head_dim
-    x = seq_gather(h, ax)
+    nh, pd = local_ssm_heads(cfg, policy)[1], cfg.ssm_head_dim
+    whole = cfg.ssm_heads % tp != 0
+    axes = fsdp_axes + ((ax,) if whole else ())
+    me = prim.axis_index(ax)
+    x = seq_gather(h, ax, seq)
 
-    def proj(name):
-        return x @ gather_block(p[name], specs[name], fsdp_axes)
+    def leaf(name):
+        w = gather_block(p[name], specs[name], axes)
+        blk = ssm_block_of(cfg, name, tp, me) if whole else None
+        return w if blk is None else w.narrow(*blk)
 
-    z, xs, Bm, Cm, dt = (proj(n) for n in ("in_z", "in_x", "in_B", "in_C",
-                                           "in_dt"))
-    xs, _ = causal_conv1d(xs, p["conv_w"])
+    z, xs, Bm, Cm, dt = (x @ leaf(n) for n in ("in_z", "in_x", "in_B",
+                                               "in_C", "in_dt"))
+    xs, _ = causal_conv1d(xs, leaf("conv_w"))
     xs = F.silu(xs)
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    a_neg = -torch.exp(p["a_log"])
+    dt = F.softplus(dt.float() + leaf("dt_bias"))
+    a_neg = -torch.exp(leaf("a_log"))
     xh = xs.reshape(xs.shape[0], xs.shape[1], nh, pd)
     y, _ = ops.ssd_scan(xh, dt, a_neg, Bm, Cm, chunk=min(64, xs.shape[1]))
-    y = y + (p["d_skip"][None, None, :, None] * xh.float()).to(y.dtype)
+    y = y + (leaf("d_skip")[None, None, :, None] * xh.float()).to(y.dtype)
     y = y.reshape(xs.shape) * F.silu(z)
-    y = (rmsnorm_sharded(y, p["ssm_norm"], ax) if tp > 1
-         else rmsnorm(y, p["ssm_norm"]))
-    y = y @ gather_block(p["out_proj"], specs["out_proj"], fsdp_axes)
+    y = (rmsnorm_sharded(y, leaf("ssm_norm"), ax, cfg.d_inner) if tp > 1
+         else rmsnorm(y, leaf("ssm_norm")))
+    y = y @ leaf("out_proj")
     return seq_scatter(y, ax, tp > 1)

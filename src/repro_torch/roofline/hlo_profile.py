@@ -38,6 +38,13 @@ from .. import tracing
 # ops that allocate without writing, or only describe a tensor
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "lift_fresh", "_local_scalar_dense"}
+# A backward formula that fills a fresh zero buffer in place on the card
+# (``gather``'s: ``zeros.scatter_add_``) takes the out-of-place variant
+# under any dispatch mode, this trace's included, as it does for a tensor
+# subclass (``isTensorSubclassLike``); the trace counts such an op as the
+# card runs it, its output in the zero buffer's place.
+_FILLS_ZEROS = {"scatter_add"}
+_ZEROS = {"zeros", "new_zeros", "zeros_like"}
 
 
 @dataclass(frozen=True)
@@ -87,6 +94,7 @@ class Trace(TorchDispatchMode):
         self.peak_bytes = 0
         self.argument_bytes = 0   # adopted: live before the trace
         self._live: dict[int, int] = {}
+        self._zeros = None        # the storage the last op zero-filled
 
     # -- memory ------------------------------------------------------------
     def _hold(self, t: torch.Tensor):
@@ -145,10 +153,16 @@ class Trace(TorchDispatchMode):
             self.c10d[func.name()] += 1
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
-        for t in outs:
-            self._hold(t)
         name = func.overloadpacket.__name__.removesuffix("_") \
             if func._schema.is_mutable else func.overloadpacket.__name__
+        if (name in _FILLS_ZEROS and not func._schema.is_mutable
+                and torch._C._current_graph_task_id() != -1
+                and id(ins[0].untyped_storage()) == self._zeros):
+            self._release(self._zeros, ins[0].untyped_storage().nbytes())
+        self._zeros = (id(outs[0].untyped_storage())
+                       if name in _ZEROS and outs else None)
+        for t in outs:
+            self._hold(t)
         in_st = {id(t.untyped_storage()) for t in ins}
         alias = (not func._schema.is_mutable and outs
                  and all(id(t.untyped_storage()) in in_st for t in outs))

@@ -293,7 +293,8 @@ def _build_sp_train_step(cfg, optimizer, policy, *, aux_weight,
     update of this rank's blocks in place (Adafactor's factored
     statistics summed over the axes that split their dims).  Raises
     ``ValueError`` when the batch does not divide by grad_accum x the data
-    axes' size or the sequence by the model axis's."""
+    axes' size (a sequence the model axis does not divide is cut by the
+    balanced split)."""
     from repro_torch.models.blocks import check_train_policy
     from repro_torch.optim.optimizers import Adafactor
     check_train_policy(cfg, policy)

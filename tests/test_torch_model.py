@@ -314,7 +314,7 @@ def test_unported_families_raise():
     jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
     jp = init_params(jamba, torch.Generator().manual_seed(0), "cpu")
     serve_pol = Policy.for_mesh(Mesh(("data", "model"), (1, 16)))
-    with pytest.raises(NotImplementedError, match="ssm_heads"):
+    with pytest.raises(NotImplementedError, match="num_experts"):
         forward(jp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, jamba,
                 mode="prefill", policy=serve_pol)
 

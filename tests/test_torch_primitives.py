@@ -6,8 +6,10 @@ interpreter with 8 host devices runs the JAX side (``torch_dist_jax.py``),
 both on the same numpy draws (``torch_dist_cases.py``).  The cases mirror
 tests/md/test_primitive_adjoints.py one for one; ``test_primitive_on_mesh``
 adds every primitive along every axis of the (2, 4) and (2, 2, 2) meshes,
-and ``test_unequal_block_collective_adjoint`` the port's collectives of
-unequal blocks (Eq. 13 and their forwards; no JAX counterpart).
+and ``test_unequal_block_collective_adjoint`` and
+``test_unequal_block_gather_scatter_pair`` the port's collectives of
+unequal blocks (Eq. 13 and their forwards; no JAX counterpart), on a
+(2, 3) mesh of 6 of the 8 ranks as well.
 
 Each case holds: Eq. 13 on the port's side (per-rank autograd through the
 hand-written backwards, the inner product over the global space) at the
@@ -40,6 +42,17 @@ UNEQUAL = {f"{name}-{mesh}-{ax}": (name, mesh, ax, n)
            for name in ("all_gather_replicated_v", "all_to_all_v")
            for mesh, ax, n in (("1d", "model", 13), ("2d", "model", 10),
                                ("2d", "data", 5), ("3d", "pipe", 3))}
+# The partitioned pair over unequal blocks, ``all_gather`` and
+# ``reduce_scatter`` with ``sizes`` (the paper's B and R over the balanced
+# split):
+# id -> (name, mesh, axis, n), n over 3 ranks on the (2, 3) mesh (6 of the
+# 8 ranks) and over 4 and 2 on the (2, 4) one.
+MESH_2X3 = ((2, 3), ("data", "model"))
+PAIR_V = {f"{name}-{mesh}-{ax}": (name, mesh, ax, n)
+          for name in ("all_gather_v", "reduce_scatter_v")
+          for mesh, ax, n in (("2x3", "model", 7), ("2x3", "model", 8),
+                              ("2d", "model", 10), ("2d", "data", 5))}
+NORM_D = 64      # rmsnorm_sharded's width: 22, 21, 21 over 3 ranks
 
 
 def _eval(case, m) -> dict:
@@ -104,6 +117,61 @@ def _unequal(cid, m) -> dict:
     return {"exact": exact, "rel": rel}
 
 
+def _pair_v(cid, m) -> dict:
+    """One collective of the partitioned pair on this rank: Eq. 13 (the
+    input and the output stacked over the axis), the forward against
+    numpy, and the even collective's exact result at equal counts.  The
+    gather takes row block i of X (n, 4, 3) on rank i to X on every rank;
+    the reduce-scatter takes rank r's own draw X_r to block i of the sum
+    over r of X_r."""
+    name, _, ax, n = PAIR_V[cid]
+    group = spec_groups(P(ax), m)
+    with prim.use_mesh(m):
+        k, me = prim.axis_size(ax), prim.axis_index(ax)
+        sizes, rows = balanced_split(n, k), shard_offsets(n, k)
+        draws = {r: C.draw((n, 4, 3), C.seed_of(f"{cid}-{r}"))
+                 for r in range(k)}
+        even = torch.from_numpy(C.draw((3 * k, 4, 3), C.seed_of(cid)))
+        if name == "all_gather_v":
+            X = torch.from_numpy(draws[0])
+            x, want = X[rows[me]:rows[me + 1]], X.numpy()
+
+            def f(t):
+                return prim.all_gather(t, ax, 0, sizes)
+            mine = even[3 * me:3 * me + 3]
+            exact = torch.equal(prim.all_gather(mine, ax, 0, [3] * k),
+                                prim.all_gather(mine, ax, 0))
+        else:
+            x = torch.from_numpy(draws[me])
+            want = sum(draws.values())[rows[me]:rows[me + 1]]
+
+            def f(t):
+                return prim.reduce_scatter(t, ax, 0, sizes)
+            exact = torch.equal(prim.reduce_scatter(even, ax, 0, [3] * k),
+                                prim.reduce_scatter(even, ax, 0))
+        with torch.no_grad():
+            got = f(x.clone()).numpy()
+        rel = adjoint_test(f, x.clone(), x_groups=group,
+                           y_groups=group).rel_err
+    return {"got": got, "want": want, "rel": rel, "exact": exact}
+
+
+def _norm_unequal(m) -> dict:
+    """``rmsnorm_sharded`` of this rank's block of the balanced split of
+    d = NORM_D over the (2, 3) mesh's model axis, gathered whole, against
+    ``rmsnorm`` on the whole rows."""
+    from repro_torch.models.common import rmsnorm, rmsnorm_sharded
+    x = torch.from_numpy(C.draw((5, NORM_D), C.seed_of("norm-x")))
+    w = torch.from_numpy(C.draw((NORM_D,), C.seed_of("norm-w")))
+    with prim.use_mesh(m):
+        k, me = prim.axis_size("model"), prim.axis_index("model")
+        offs = shard_offsets(NORM_D, k)
+        block = rmsnorm_sharded(x[:, offs[me]:offs[me + 1]],
+                                w[offs[me]:offs[me + 1]], "model", NORM_D)
+        got = prim.all_gather(block, "model", 1, balanced_split(NORM_D, k))
+    return {"got": got, "want": rmsnorm(x, w), "width": block.shape[1]}
+
+
 def _mesh_facts(rank) -> dict:
     """The mesh builders on this world of 8 ranks."""
     facts = {}
@@ -159,6 +227,12 @@ def _rank_fn(rank, mesh1d):
            for cid, case in {**PRIM_CASES, **SWEEP_CASES}.items()}
     out["unequal"] = {cid: _unequal(cid, meshes[UNEQUAL[cid][1]])
                       for cid in UNEQUAL}
+    # ranks 6 and 7 are outside the (2, 3) mesh (None) and skip its cases
+    meshes["2x3"] = tmesh.make_host_mesh(*MESH_2X3, device="cpu")
+    out["pair_v"] = {cid: _pair_v(cid, meshes[PAIR_V[cid][1]])
+                     for cid in PAIR_V if meshes[PAIR_V[cid][1]] is not None}
+    if meshes["2x3"] is not None:
+        out["norm_v"] = _norm_unequal(meshes["2x3"])
     # tests/md/test_primitive_adjoints.py: the analytic gradient of the
     # boundary case, sum over w of x * B(w), at w = 1
     x = torch.from_numpy(PRIM_CASES["boundary_transpose"]["inputs"][0])
@@ -331,6 +405,38 @@ def test_unequal_block_collective_adjoint(results, cid):
         got = rank["unequal"][cid]
         assert got["exact"], (cid, r)
         assert got["rel"] < C.EPS, (cid, r, got["rel"])
+
+
+@pytest.mark.parametrize("cid", sorted(PAIR_V))
+def test_unequal_block_gather_scatter_pair(results, cid):
+    """Eq. 13 for the partitioned pair of unequal blocks on every rank of
+    its mesh (``all_gather``'s adjoint ``reduce_scatter``, with sizes, and
+    back),
+    the forwards against numpy (the gather exact, the scatter's sum within
+    1e-6 of scale), and equal counts giving exactly the even
+    ``all_gather`` and ``reduce_scatter``."""
+    ranks, _ = results
+    world = 6 if PAIR_V[cid][1] == "2x3" else 8
+    assert [cid in rank["pair_v"] for rank in ranks] == [True] * world + [
+        False] * (8 - world)
+    for r, got in enumerate(rank["pair_v"][cid] for rank in ranks[:world]):
+        assert got["rel"] < C.EPS, (cid, r, got["rel"])
+        assert got["exact"], (cid, r)
+        if cid.startswith("all_gather_v"):
+            np.testing.assert_array_equal(got["got"], got["want"])
+        else:
+            _close(got["got"], got["want"], C.FWD_RTOL, f"{cid} rank {r}")
+
+
+def test_rmsnorm_sharded_over_unequal_feature_blocks(results):
+    """``rmsnorm_sharded`` over the balanced split of d = 64 on 3 ranks
+    (22, 21, 21 features) equals ``rmsnorm`` of the whole rows."""
+    ranks, _ = results
+    widths = [rank["norm_v"]["width"] for rank in ranks[:6]]
+    assert widths == [22, 21, 21] * 2
+    for r, rank in enumerate(ranks[:6]):
+        got = rank["norm_v"]
+        _close(got["got"], got["want"], C.FWD_RTOL, f"rank {r}")
 
 
 def test_2d_mesh_composed_axes(results):

@@ -140,3 +140,20 @@ def test_the_trace_keeps_the_peak_of_live_storage_bytes():
     assert tr.argument_bytes == 4 << 20
     assert tr.peak_bytes == 6 << 20
     assert tr.live_bytes == 6 << 20 and t.numel() == 512 * 1024
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_gather_backward_counts_its_zero_buffer_once(device):
+    """Under the trace (a dispatch mode) ``gather``'s backward takes the
+    out-of-place ``scatter_add`` on a fresh zero buffer, where a run
+    without a mode fills that buffer in place: the trace counts the
+    gradient in the buffer's place, so its peak is x and x's gradient
+    (4 MiB each), not a third buffer as well."""
+    x = torch.zeros(1024, 1024, device=device, requires_grad=True)
+    idx = torch.zeros(1024, 1, dtype=torch.long, device=device)
+    tr = Trace().adopt([x])
+    with tr:
+        (g,) = torch.autograd.grad(x.gather(1, idx).sum(), x)
+    assert any(r.op == "aten.scatter_add" for r in tr.records)
+    assert 8 << 20 <= tr.peak_bytes < 9 << 20, tr.peak_bytes
+    assert g.shape == x.shape

@@ -171,30 +171,33 @@ def _policy(shape, names=("data", "model"), **kw):
 
 
 @pytest.mark.parametrize("arch,tp,match", [
-    ("mamba2-370m", 16, "ssm_heads"),      # SSM mixers: 8 heads
+    ("mamba2-370m", 16, None),             # SSM mixers: 8 heads, served
     ("jamba-v0.1-52b", 8, "num_experts"),  # SSM mixers and MoE FFNs
     ("kimi-k2-1t-a32b", 8, "num_experts"),  # MoE FFNs: 4 experts
 ])
 def test_serving_refuses_ssm_and_moe(arch, tp, match):
     """SSM mixers and MoE FFNs are served (``test_torch_serve_mixers_md``
     holds them to the reference); refused only where the model axis does
-    not divide their heads or experts."""
+    not divide their experts, as the reference refuses them.  SSM heads
+    the axis does not divide split by the balanced decomposition."""
     cfg = reduced(get_config(arch))
     check_serve_policy(cfg, _policy((2, 2)))
     check_serve_policy(cfg, _policy((2, 4)))
+    if match is None:
+        check_serve_policy(cfg, _policy((1, tp)))
+        return
     with pytest.raises(NotImplementedError, match=match):
         check_serve_policy(cfg, _policy((1, tp)))
 
 
 def test_serving_refuses_heads_the_model_axis_does_not_divide():
-    """Query heads the model axis does not divide are served (split by
-    the balanced decomposition): reduced mistral at TP 3 is refused for
-    its d_model alone, and the four archs whose heads 16 does not divide
-    are accepted at (16, 16); a head_dim ``kvdim`` cannot split is
-    refused."""
-    with pytest.raises(NotImplementedError, match="d_model") as err:
-        check_serve_policy(CFG, _policy((1, 3)))
-    assert "num_heads" not in str(err.value)
+    """Query heads and widths the model axis does not divide are served
+    (split by the balanced decomposition), none refused: reduced mistral
+    at TP 3 (d_model 64, 4 heads, head_dim 16) under both layouts and
+    at TP 32 under ``kvdim`` (head_dim 16 over 32), and the four archs
+    whose heads 16 does not divide at (16, 16)."""
+    for layout in ("kvdim", "kvseq"):
+        check_serve_policy(CFG, _policy((1, 3), kv_layout=layout))
     for arch in ("llama4-maverick-400b-a17b", "phi3-medium-14b",
                  "phi4-mini-3.8b", "musicgen-medium"):
         check_serve_policy(get_config(arch), _policy((16, 16)))
@@ -202,8 +205,7 @@ def test_serving_refuses_heads_the_model_axis_does_not_divide():
     glm = get_config("glm4-9b")
     check_serve_policy(glm, _policy((1, 2)))
     check_serve_policy(glm, _policy((1, 4)))
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        check_serve_policy(CFG, _policy((1, 32), kv_layout="kvdim"))
+    check_serve_policy(CFG, _policy((1, 32), kv_layout="kvdim"))
 
 
 def test_serving_refuses_other_axes_and_layouts():
@@ -211,7 +213,7 @@ def test_serving_refuses_other_axes_and_layouts():
         check_serve_policy(CFG, _policy((2, 2, 2), ("data", "ctx", "model")))
     with pytest.raises(ValueError, match="kv_layout"):
         check_serve_policy(CFG, _policy((1, 2), kv_layout="kvboth"))
-    with pytest.raises(NotImplementedError, match="ssm_heads"):
-        ServeEngine(reduced(get_config("mamba2-370m")), {"embed":
+    with pytest.raises(NotImplementedError, match="num_experts"):
+        ServeEngine(reduced(get_config("jamba-v0.1-52b")), {"embed":
                     torch.zeros(1)}, _policy((1, 16)), max_seq=8,
                     batch_size=2)

@@ -18,8 +18,18 @@ same policy on the same carried-over parameters (fp32, reduced configs).
 - ``init_rank_params`` draws the SSM and router leaves at
   ``init_params``' distributions (jamba, d_model widened to 256 for
   enough draws a rank).
-- Host only: ``check_serve_policy`` accepts these families and refuses
-  widths the model axis does not divide.
+- At (2, 3) and (1, 3), on 6 and 3 of the 8 ranks, where no width of
+  the reduced configs divides by 3: glm4-9b under ``kvdim`` at (2, 3) and
+  ``kvseq`` at (1, 3) (d_model 64, head_dim 16 and d_ff 128 split 22, 21,
+  21 / 6, 5, 5 / 43, 43, 42; 4 query heads 2, 1, 1), mamba2 at (2, 3) (8
+  SSM heads 3, 3, 2 and their d_inner channels), jamba and kimi-k2 with 6
+  experts (kimi's shared expert d_ff 100), 12 query heads over 3 K/V
+  heads at (2, 3) under ``kvdim`` (one K/V head a rank, head_dim 16 split
+  6, 5, 5), and pixtral-12b at (2, 4) prefilled from the stub frontend's
+  embeds: the same holds as above.
+- Host only: ``check_serve_policy`` accepts these families at every TP
+  their experts allow and refuses an expert count the model axis does not
+  divide.
 """
 
 import dataclasses
@@ -36,7 +46,8 @@ import torch_serve_mixers_cases as C
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import primitives as prim
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import init_rank_params, shard_params
+from repro_torch.models import (forward, init_cache, init_rank_params,
+                                shard_params)
 from repro_torch.models.blocks import check_serve_policy
 from repro_torch.serve import ServeEngine
 from repro_torch.sharding import Policy
@@ -64,6 +75,25 @@ def _init_draws(cfg):
     return out
 
 
+@torch.inference_mode()
+def _serve_embeds(eng, emb):
+    """The sharded engine's prefill from the stub frontend's ``emb`` (the
+    global batch; ``ServeEngine.prefill`` takes tokens, as the
+    reference's), then STEPS greedy decode steps: (this rank's last
+    prefill logits, the global greedy tokens)."""
+    cfg, pol = eng.cfg, eng.policy
+    cache = init_cache(cfg, C.BATCH, C.MAX_SEQ, device="cpu", policy=pol)
+    logits, cache, _ = forward(eng.params, {"embeds": eng._rows(emb)}, cfg,
+                               mode="prefill", cache=cache, policy=pol)
+    first = logits = logits[:, -1]
+    tokens = []
+    for t in range(C.STEPS):
+        tokens.append(logits.argmax(-1, keepdim=True))
+        logits, cache = eng.decode_step(cache, tokens[-1], C.PROMPT + t)
+    with prim.use_mesh(pol.mesh):
+        return first, prim.all_gather(torch.cat(tokens, 1), "data", 0)
+
+
 def _rank_fn(rank, mesh1d, init):
     prompt = torch.from_numpy(init["prompt"]).long()
     out = {}
@@ -72,14 +102,20 @@ def _rank_fn(rank, mesh1d, init):
         params = {k[len(model) + 1:]: torch.from_numpy(v)
                   for k, v in init.items() if k.startswith(f"{model}/")}
         mesh = tmesh.make_host_mesh(shape, ("data", "model"), device="cpu")
+        if mesh is None:    # a (2, 3) mesh: ranks 6 and 7 sit it out
+            continue
         pol = Policy.for_mesh(mesh, kv_layout=layout)
         eng = ServeEngine(cfg, shard_params(cfg, params, pol), pol,
                           max_seq=C.MAX_SEQ, batch_size=C.BATCH)
-        logits, _ = eng.prefill(prompt)
         with prim.use_mesh(mesh):
             row = prim.axis_index("data")
-        out[case] = {"logits": logits, "row": row,
-                     "tokens": eng.generate(prompt, steps=C.STEPS)}
+        if case in C.EMBEDS:
+            logits, tokens = _serve_embeds(
+                eng, torch.from_numpy(C.embeds(cfg.d_model, np)))
+        else:
+            logits, _ = eng.prefill(prompt)
+            tokens = eng.generate(prompt, steps=C.STEPS)
+        out[case] = {"logits": logits, "row": row, "tokens": tokens}
     out["init"] = _init_draws(INIT_CFG)
     dist.barrier()
     return out
@@ -98,6 +134,15 @@ def results(tmp_path_factory):
     return ranks, jax_out
 
 
+def _serving(ranks, case):
+    """The ranks of ``case``'s mesh (the first data x model), and that no
+    other rank served it."""
+    shape = C.CASES[case][1]
+    world = shape[0] * shape[1]
+    assert all(case not in rank for rank in ranks[world:]), case
+    return ranks[:world]
+
+
 @pytest.mark.parametrize("case", sorted(C.CASES))
 def test_prefill_logits_match_reference(results, case):
     ranks, jax_out = results
@@ -105,7 +150,7 @@ def test_prefill_logits_match_reference(results, case):
     dp = C.CASES[case][1][0]
     b = C.BATCH // dp
     scale = float(np.abs(want).max())
-    for r, rank in enumerate(ranks):
+    for r, rank in enumerate(_serving(ranks, case)):
         got = rank[case]
         rows = want[got["row"] * b:(got["row"] + 1) * b]
         np.testing.assert_allclose(got["logits"], rows, rtol=0,
@@ -117,7 +162,7 @@ def test_prefill_logits_match_reference(results, case):
 def test_greedy_tokens_equal_reference(results, case):
     ranks, jax_out = results
     want = jax_out[f"{case}/tokens"]
-    for r, rank in enumerate(ranks):
+    for r, rank in enumerate(_serving(ranks, case)):
         np.testing.assert_array_equal(rank[case]["tokens"], want,
                                       err_msg=f"{case} rank {r}")
 
@@ -185,6 +230,11 @@ def _policy(shape, **kw):
     # query heads TP 16 does not divide: 40, 40, 24 and 24
     ("llama4-maverick-400b-a17b", 16), ("phi3-medium-14b", 16),
     ("phi4-mini-3.8b", 16), ("musicgen-medium", 16),
+    # widths the model axis does not divide, split by the balanced
+    # decomposition: mamba2's 32 SSM heads and d_inner 2048 at 3; glm4's
+    # d_model 4096, head_dim 128 and d_ff 13696 at 3; kimi's d_model 7168
+    # and shared expert d_ff 2048 at 6 (its 384 experts divide)
+    ("mamba2-370m", 3), ("glm4-9b", 3), ("kimi-k2-1t-a32b", 6),
 ])
 @pytest.mark.parametrize("layout", ["kvdim", "kvseq"])
 def test_serving_accepts_the_full_width_families(arch, tp, layout):
@@ -192,12 +242,12 @@ def test_serving_accepts_the_full_width_families(arch, tp, layout):
 
 
 @pytest.mark.parametrize("arch,tp,match", [
-    ("mamba2-370m", 3, "ssm_heads"),       # 32 SSM heads, d_inner 2048
     ("jamba-v0.1-52b", 32, "num_experts"),  # 16 experts
-    ("kimi-k2-1t-a32b", 7, "shared experts' d_ff"),
-    ("glm4-9b", 3, "d_ff"),                 # 13696 = 2^7 x 107
+    ("kimi-k2-1t-a32b", 7, "num_experts"),  # 384 experts
 ])
 def test_serving_refuses_widths_the_model_axis_does_not_divide(arch, tp,
                                                                match):
+    """Only an expert count the model axis does not divide is refused, as
+    the reference's expert split refuses it."""
     with pytest.raises(NotImplementedError, match=match):
         check_serve_policy(get_config(arch), _policy((1, tp)))

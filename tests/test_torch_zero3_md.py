@@ -19,6 +19,13 @@ rounding (``torch_zero3_cases.REFERENCE``).
   (wq's columns split mid-head by the reference's spec, each rank
   attending its balanced block of heads), at (2, 4): losses, grad norms,
   every gradient leaf and the state after two steps.
+- reduced glm4-9b at ``grad_accum=2`` at (2, 4), and reduced mamba2-370m
+  at (2, 3) on 6 of the 8 ranks (8 SSM heads, d_inner 128 and the
+  sequence 16, none divisible by 3: the SSM leaves whole over model, each
+  rank's heads and sequence block the balanced split), and kimi-k2's
+  period with 6 experts at (2, 3) (each rank routes the whole sequence
+  16, which 3 does not divide): losses, grad norms, every gradient leaf
+  and the state after two steps.
 - ZeRO-3 holds: each rank's block of each leaf is 1 / (the size of the
   axes its spec names) of it, and so are its moments.
 - the sharded state saved and restored bitwise, and the same checkpoint
@@ -85,6 +92,8 @@ def _case(case, init, ckpt_dir):
     params = {k[len(arch) + 1:]: torch.from_numpy(v)
               for k, v in init.items() if k.startswith(f"{arch}/")}
     mesh = tmesh.make_host_mesh(shape, device="cpu", all_ranks_group=True)
+    if mesh is None:    # a (2, 3) mesh: ranks 6 and 7 sit it out
+        return None
     pol = Policy(mesh)
     opt = make_optimizer(cfg.optimizer, total_steps=C.TOTAL_STEPS,
                          base_lr=C.LR)
@@ -153,6 +162,7 @@ def _rank_fn(rank, mesh1d, paths, ckpt_dir):
         with np.load(RC.params_path(path)) as data:
             init.update(data)
     out = {case: _case(case, init, ckpt_dir) for case in C.CASES}
+    out = {case: o for case, o in out.items() if o is not None}
     dist.barrier()
     if rank:
         out = {case: {"blocks": o["blocks"]} for case, o in out.items()}
@@ -263,9 +273,11 @@ def test_every_rank_holds_zero3_blocks(results, case):
     divides is cut over it: 1 / dp of that dim on every rank."""
     ranks, _, _ = results
     shapes = ranks[0][case]["global_shapes"]
-    dp = C.CASES[case][1][0]
+    dp, tp = C.CASES[case][1]
+    assert [case in rank for rank in ranks] == (
+        [True] * (dp * tp) + [False] * (8 - dp * tp))
     cut = 0
-    for r, rank in enumerate(ranks):
+    for r, rank in enumerate(ranks[:dp * tp]):
         for k, (local, sizes) in rank[case]["blocks"].items():
             want = tuple(n // math.prod(s) for n, s in zip(shapes[k], sizes))
             assert local == want, (r, k, local, shapes[k], sizes)
@@ -357,3 +369,16 @@ def test_other_axes_and_no_seq_shard_are_refused():
                                                  ("data", "ctx", "model"))))
     with pytest.raises(ValueError, match="seq_shard"):
         check_train_policy(cfg, Policy(_FakeMesh((2, 2)), seq_shard=False))
+
+
+def test_uneven_ssm_widths_train_and_uneven_experts_are_refused():
+    """The policy train program takes mamba2-370m's 32 SSM heads and
+    d_inner 2048 at (16, 3) (each rank its balanced block of 11, 11 or 10
+    heads and their channels of the whole leaves), and refuses an expert
+    count the model axis does not divide, as the reference's expert split
+    does: jamba's 16 experts at 3."""
+    check_train_policy(get_config("mamba2-370m"),
+                       Policy(_FakeMesh((16, 3))))
+    with pytest.raises(NotImplementedError, match="'num_experts': 16"):
+        check_train_policy(get_config("jamba-v0.1-52b"),
+                           Policy(_FakeMesh((16, 3))))

@@ -1,10 +1,10 @@
-"""Cases shared by the port's sharded serving of SSM mixers, MoE FFNs and
-K/V and query head counts the model axis does not divide
+"""Cases shared by the port's sharded serving of SSM mixers, MoE FFNs,
+K/V and query head counts and widths the model axis does not divide
 (``test_torch_serve_mixers_md.py``) and its JAX side
 (``torch_serve_mixers_jax.py``): the reference's ``ServeEngine(cfg,
 params, Policy.for_mesh(mesh, kv_layout=...))`` on reduced configs over
-(data, model) meshes of 8 host devices.  No JAX and no torch here: the
-port's ranks and the JAX child both import it.
+(data, model) meshes of the first 6 or all 8 host devices.  No JAX and no
+torch here: the port's ranks and the JAX child both import it.
 
 The JAX child draws each model's parameters (``init_params(cfg,
 PRNGKey(PARAMS_SEED))``) and writes them all, with the prompt, first
@@ -32,7 +32,14 @@ PROMPT_SEED = 12
 # split by the balanced decomposition as at 16 x 16: "phi3_h10" (10 over
 # 5 K/V heads at TP 4: 3, 3, 2, 2 heads, ranks 0 and 1 holding parts of
 # two groups) and "phi4_h6" (6 over 2 K/V heads, tied embeddings: 2, 2,
-# 1, 1 heads).
+# 1, 1 heads).  At model = 3 no width of reduced glm4-9b divides (d_model
+# 64, head_dim 16, d_ff 128; 4 query heads split 2, 1, 1 and its 2 K/V
+# heads stay whole) nor mamba2-370m's 8 SSM heads and d_inner 128;
+# "jamba_e6" and "kimi_e6" take 6 experts (3 divides them), and kimi's
+# shared expert d_ff 100 (96 would divide).  "phi3_kv3" at model = 3
+# splits its 3 K/V heads one a rank but not head_dim 16 (6, 5, 5), so
+# decode moves q, k and v to unequal head_dim blocks.  "pixtral" serves
+# from the stub frontend's embeds (``EMBEDS``).
 MODELS = {
     "jamba": ("jamba-v0.1-52b", {}),          # (ssm, mlp), (ssm, moe), (attn, mlp)
     "mamba2": ("mamba2-370m", {}),            # ssm only, tied embeddings
@@ -42,6 +49,9 @@ MODELS = {
     "phi3_kv3": ("phi3-medium-14b", {"num_heads": 12, "num_kv_heads": 3}),
     "phi3_h10": ("phi3-medium-14b", {"num_heads": 10, "num_kv_heads": 5}),
     "phi4_h6": ("phi4-mini-3.8b", {"num_heads": 6, "num_kv_heads": 2}),
+    "jamba_e6": ("jamba-v0.1-52b", {"num_experts": 6}),
+    "kimi_e6": ("kimi-k2-1t-a32b", {"num_experts": 6, "moe_d_ff": 100}),
+    "pixtral": ("pixtral-12b", {}),
 }
 
 # name -> (model, (data, model), kv_layout)
@@ -58,7 +68,18 @@ CASES = {
     "phi3_h10_dp2_tp4_kvseq": ("phi3_h10", (2, 4), "kvseq"),
     "phi4_h6_dp2_tp4_kvdim": ("phi4_h6", (2, 4), "kvdim"),
     "phi4_h6_dp2_tp4_kvseq": ("phi4_h6", (2, 4), "kvseq"),
+    "glm4_dp2_tp3_kvdim": ("glm4", (2, 3), "kvdim"),
+    "glm4_dp1_tp3_kvseq": ("glm4", (1, 3), "kvseq"),
+    "mamba2_dp2_tp3": ("mamba2", (2, 3), "kvdim"),
+    "jamba_e6_dp2_tp3_kvdim": ("jamba_e6", (2, 3), "kvdim"),
+    "kimi_e6_dp2_tp3_kvdim": ("kimi_e6", (2, 3), "kvdim"),
+    "pixtral_embeds_dp2_tp4_kvdim": ("pixtral", (2, 4), "kvdim"),
+    "phi3_kv3_dp2_tp3_kvdim": ("phi3_kv3", (2, 3), "kvdim"),
 }
+# the cases that prefill from ``embeds(d_model)`` in place of the prompt
+# (the greedy decode steps take tokens, as the engine's)
+EMBEDS = ("pixtral_embeds_dp2_tp4_kvdim",)
+EMBEDS_SEED = 13
 
 # the fp32 pin: prefill logits within 1e-3 of scale, greedy tokens equal
 LOGITS_TOL = 1e-3
@@ -68,6 +89,12 @@ def model_config(model, get_config, reduced):
     """The reduced config of ``model``, from either package's ``configs``."""
     arch, overrides = MODELS[model]
     return dataclasses.replace(reduced(get_config(arch)), **overrides)
+
+
+def embeds(d: int, np):
+    """The prompt's stub-frontend embeddings, (BATCH, PROMPT, d) float32."""
+    return np.random.default_rng(EMBEDS_SEED).standard_normal(
+        (BATCH, PROMPT, d)).astype(np.float32)
 
 
 def start_jax(out_path):

@@ -12,7 +12,8 @@ to ``torch_region_cases.params_path(OUT)``: ``<model>/<key>`` and
 ``prompt``.  Then the reference engine on each case's mesh and policy
 (its prefill and its decode are each one jitted program):
 ``<case>/logits`` (the prefill's last logits) and ``<case>/tokens`` (the
-greedy tokens).
+greedy tokens).  A mesh of fewer than 8 devices takes the first ones; an
+``EMBEDS`` case prefills from the stub frontend's embeddings.
 """
 
 from __future__ import annotations
@@ -54,10 +55,22 @@ def main(argv):
 
     out = {}
     for case, (model, shape, layout) in C.CASES.items():
-        mesh = compat.make_mesh(shape, ("data", "model"))
+        mesh = compat.make_mesh(shape, ("data", "model"),
+                                devices=jax.devices()[:shape[0] * shape[1]])
         eng = ServeEngine(cfgs[model], params[model],
                           Policy.for_mesh(mesh, kv_layout=layout),
                           max_seq=C.MAX_SEQ, batch_size=C.BATCH)
+        if case in C.EMBEDS:
+            emb = jnp.asarray(C.embeds(cfgs[model].d_model, np))
+            logits, cache = eng._prefill(eng.params, {"embeds": emb})
+            out[f"{case}/logits"] = np.asarray(logits)
+            tokens = []
+            for t in range(C.STEPS):
+                tokens.append(eng._pick(logits, True, None, 1.0, t))
+                logits, cache = eng.decode_step(cache, tokens[-1],
+                                                jnp.int32(C.PROMPT + t))
+            out[f"{case}/tokens"] = np.asarray(jnp.concatenate(tokens, 1))
+            continue
         logits, _ = eng.prefill(jnp.asarray(prompt))
         out[f"{case}/logits"] = np.asarray(logits)
         out[f"{case}/tokens"] = np.asarray(

@@ -2,7 +2,7 @@
 (``test_torch_zero3_md.py``) and its JAX side (``torch_zero3_jax.py``):
 the reference's GSPMD ``build_train_step(cfg, Policy(mesh), opt)`` (ZeRO-3
 over ``data``, tensor and sequence parallelism over ``model``) on reduced
-configs over (data, model) meshes of 8 host devices.  No JAX and no torch
+configs over (data, model) meshes of the first 6 or all 8 host devices.  No JAX and no torch
 here: the port's ranks and the JAX child both import it.
 
 The JAX child draws the reference's parameters of each arch
@@ -32,10 +32,15 @@ LR, TOTAL_STEPS = 1e-3, 10
 # the reference's spec splits wq's 96 columns 24 a rank (1.5 heads, mid
 # head, as phi3-medium-14b's 5120 at 16) and each rank attends its
 # balanced block of 2, 2, 1 or 1 heads.
+# "glm4-accum2": reduced glm4-9b (the same parameters) at grad_accum 2.
+# "kimi-e6": kimi-k2's period with 6 experts, which model = 3 divides
+# while the sequence 16 is not: each rank routes the whole sequence.
 ARCHS = {"glm4-9b": ("glm4-9b", {}),
          "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {"num_layers": 1}),
          "mamba2-370m": ("mamba2-370m", {}),
-         "glm4-h6": ("glm4-9b", {"num_heads": 6, "num_kv_heads": 2})}
+         "glm4-h6": ("glm4-9b", {"num_heads": 6, "num_kv_heads": 2}),
+         "glm4-accum2": ("glm4-9b", {"grad_accum": 2}),
+         "kimi-e6": ("kimi-k2-1t-a32b", {"num_layers": 1, "num_experts": 6})}
 
 # name -> (arch, (data, model)) of the port's cases
 CASES = {
@@ -45,6 +50,13 @@ CASES = {
     "kimi_dp2_tp4": ("kimi-k2-1t-a32b", (2, 4)),
     "mamba_dp2_tp4": ("mamba2-370m", (2, 4)),
     "glm_h6_dp2_tp4": ("glm4-h6", (2, 4)),
+    # two microbatches a step (the reference's scan over the global batch
+    # cut in two), and mamba2's 8 SSM heads, d_inner 128 and the sequence
+    # 16 over model = 3 (6 of the 8 ranks): every SSM leaf whole over
+    # model, each rank's heads and the sequence the balanced split
+    "glm_accum2_dp2_tp4": ("glm4-accum2", (2, 4)),
+    "mamba_dp2_tp3": ("mamba2-370m", (2, 3)),
+    "kimi_e6_dp2_tp3": ("kimi-e6", (2, 3)),
 }
 # The reference runs on (2, 4) only, in three JAX children side by side (a
 # jitted program a mesh is most of this file's time): its GSPMD step
@@ -56,11 +68,15 @@ CASES = {
 REFERENCE = {"glm_dp2_tp4": "glm_dp2_tp4", "glm_dp4_tp2": "glm_dp2_tp4",
              "glm_dp8_tp1": "glm_dp2_tp4", "kimi_dp2_tp4": "kimi_dp2_tp4",
              "mamba_dp2_tp4": "mamba_dp2_tp4",
-             "glm_h6_dp2_tp4": "glm_h6_dp2_tp4"}
-CHILDREN = {"glm": ("glm_dp2_tp4",),
-            "mamba": ("mamba_dp2_tp4", "glm_h6_dp2_tp4"),
-            "kimi": ("kimi_dp2_tp4",)}
-GRADS_CASES = ("glm_dp2_tp4", "glm_h6_dp2_tp4")
+             "glm_h6_dp2_tp4": "glm_h6_dp2_tp4",
+             "glm_accum2_dp2_tp4": "glm_accum2_dp2_tp4",
+             "mamba_dp2_tp3": "mamba_dp2_tp3",
+             "kimi_e6_dp2_tp3": "kimi_e6_dp2_tp3"}
+CHILDREN = {"glm": ("glm_dp2_tp4", "mamba_dp2_tp3"),
+            "mamba": ("mamba_dp2_tp4", "glm_h6_dp2_tp4", "kimi_e6_dp2_tp3"),
+            "kimi": ("kimi_dp2_tp4", "glm_accum2_dp2_tp4")}
+GRADS_CASES = ("glm_dp2_tp4", "glm_h6_dp2_tp4", "glm_accum2_dp2_tp4",
+               "mamba_dp2_tp3", "kimi_e6_dp2_tp3")
 CKPT_CASE = "glm_dp2_tp4"
 
 # the pins: tests/md/test_hybrid.py's for the gradients, 2e-5 for the loss

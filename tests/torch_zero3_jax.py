@@ -71,7 +71,8 @@ def main(argv):
     for case in cases:
         arch, shape = C.CASES[case]
         cfg = config(arch)
-        mesh = compat.make_mesh(shape, ("data", "model"))
+        mesh = compat.make_mesh(shape, ("data", "model"),
+                                devices=jax.devices()[:shape[0] * shape[1]])
         pol = Policy(mesh)
         opt = make_optimizer(cfg.optimizer, total_steps=C.TOTAL_STEPS,
                              base_lr=C.LR)

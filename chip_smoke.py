@@ -29,17 +29,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and a prompt shorter than a chunk, ragged lengths included, and at the
    serving shape with dt and A drawn as mamba2's block makes them.  bf16
    flash attention and SSD inputs take the tensor-core kernels, fp32 ones
-   the CUDA-core kernels; the bf16 routes are also checked at every head
-   dim (flash, 112 included) and every head dim and chunk tile (SSD), on
-   strided views, and refusing a misaligned stride, and each call's route
-   is checked.  Both flash routes at kimi-k2-1t-a32b's head dim 112 (q
+   the 3xTF32 kernels (TF32 tensor cores, split products); both routes
+   are also checked at every head dim (flash, 112 included) and every
+   head dim and chunk tile (SSD), on strided views (bf16 refusing a
+   misaligned stride, fp32 reading unaligned ones), each call's route is
+   checked, and empty head blocks (H = 0, a rank of a model axis larger
+   than the head count) return the plain versions' shapes, launching
+   nothing.  Both flash routes at kimi-k2-1t-a32b's head dim 112 (q
    (1,1024,64,112), k/v (1,1024,8,112), causal) against the plain
    version, timed beside it and SDPA.
    Then each kernel's (per route), its plain version's and a library
    call's times at its serving shape, beside the bound the card's data
-   sheet gives and the achieved TFLOP/s and GB/s.
+   sheet gives (the fp32 rows: three TF32 passes, and the fp32 CUDA
+   cores beside it) and the achieved TFLOP/s and GB/s.
 3. parity: each model at full width cut to 2 layers, fp32, served on the
-   card (CUDA-core kernels) and on the host (plain versions): logits and
+   card (3xTF32 kernels) and on the host (plain versions): logits and
    caches (K/V, conv and SSM states) within 1e-3, identical greedy tokens.
    Then in bf16 on the card (tensor-core kernels) against the host's fp32
    forward from the same bf16-rounded parameters: prefill logits and caches
@@ -57,7 +61,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``repro/kernels/ops.py`` does) against the plain function's own
    autograd, within the forward's pins; the backward timed by CUDA events.
 7. train parity: glm4-9b at full width cut to 2 layers, fp32, batch 2,
-   seq 200 (a ragged flash tile): loss and every grad leaf card (CUDA-core
+   seq 200 (a ragged flash tile): loss and every grad leaf card (3xTF32
    kernels) vs host, then one AdamW step through the train step on the
    card against the host's update applied leaf by leaf (host memory).
 8. train: glm4-9b in bf16 at full width cut to 8 layers, batch 4, seq 1024,
@@ -90,7 +94,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    through ``sublayer_apply`` with an ``explicit_tp`` policy (the region,
    its ring matmuls and sharded RMSNorm) against the ordinary
    ``sublayer_apply`` on the card: fp32 forward within 2e-4 and grads
-   within 5e-4 (CUDA-core flash), bf16 within BF16_PARITY_TOL of scale
+   within 5e-4 (3xTF32 flash), bf16 within BF16_PARITY_TOL of scale
    (tensor-core flash); exactly one flash launch a sublayer on the dtype's
    route, counted around the region run; forward+backward of both timed by
    CUDA events in turns (region, ordinary, ordinary, region) and by their
@@ -404,15 +408,15 @@ PARITY_TOL = 1e-3
 # logits and caches differ by ~1-2% of their scale; 5% of the largest |value|
 # passes that and fails a broken kernel, whose error is of the scale itself.
 BF16_PARITY_TOL = 5e-2
-FLASH_TC_CASES = [    # (B, Sq, Skv, H, KH), each hd, bf16
+FLASH_TC_CASES = [    # (B, Sq, Skv, H, KH), each hd, bf16 and fp32
     (1, 128, 128, 2, 2),
     (2, 200, 200, 8, 2),         # ragged last q tile and KV tile
     (1, 72, 200, 4, 1),          # Sq != Skv, non-causal only
 ]
-SSD_TC_CASES = [      # (P, chunk tile, S), bf16, B 2, H 8, N 128
+SSD_TC_CASES = [      # (P, chunk tile, S), bf16 and fp32, B 2, H 8, N 128
     (P, tile, S) for P in (16, 32, 64) for tile in (16, 32, 64, 128)
     for S in (200, 40)]  # a ragged last chunk; a prompt shorter than some
-ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 BACKWARD = "plain recompute, as repro/kernels/ops.py"
 # the train cell: glm4-9b's published widths, depth cut from 40 to 8 layers
 TRAIN = {"layers": 8, "batch": 4, "seq": 1024, "steps": 5, "lr": 1e-3}
@@ -561,9 +565,11 @@ def emit(**row):
 peaks = roofline.peaks
 
 
-def card_bound(cost, dtype):
-    """``roofline.bound`` of a ``kernel_cost`` on this card's peaks."""
-    return roofline.bound(cost, dtype, peaks(torch.cuda.get_device_name(0))[1])
+def card_bound(cost, dtype, route=""):
+    """``roofline.bound`` of a ``kernel_cost`` on this card's peaks (a
+    kernel's at its ``route``'s rate: ``tf32x3``'s three TF32 passes)."""
+    return roofline.bound(cost, dtype, peaks(torch.cuda.get_device_name(0))[1],
+                          route)
 
 
 def cuda_ms(fn, iters=20):
@@ -693,8 +699,32 @@ def phase_kernels():
                 check_close(f"{case} h_final vs {plain}", h, want_h,
                             SSD_TOL[dtype])
     phase_tensor_core_checks(gen)
+    phase_empty_blocks(gen)
     phase_head_dim_112(gen)
     return phase_timing(gen)
+
+
+def phase_empty_blocks(gen):
+    """A rank holding no head (a model axis larger than the head count):
+    flash with H = KH = 0 and the SSD scan with H = 0, each dtype, return
+    the plain versions' (empty) shapes and launch nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((2, 64, 0, 128), dtype, gen)
+        x, dt, a_neg, bm, cm = ssd_inputs(2, 64, 0, 64, 128, dtype, gen)
+        before = snapshot()
+        o = ops.flash_attention(q, q, q)
+        y, h = ops.ssd_scan(x, dt, a_neg, bm, cm)
+        torch.cuda.synchronize()
+        got = [tuple(t.shape) for t in (o, y, h)]
+        want = [tuple(ref.attention_ref(q, q, q).shape)] + [
+            tuple(t.shape) for t in ref.ssd_chunked(x, dt, a_neg, bm, cm,
+                                                    chunk=64)]
+        emit(phase="check", case=f"empty head blocks {dtype}", shapes=got,
+             launches=snapshot() == before)
+        if got != want or snapshot() != before:
+            raise AssertionError(f"empty head blocks {dtype}: shapes {got} "
+                                 f"(plain {want}), launches "
+                                 f"{snapshot()} after {before}")
 
 
 def phase_head_dim_112(gen):
@@ -717,7 +747,8 @@ def phase_head_dim_112(gen):
                           FLASH_TOL[dtype])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bound = card_bound(kernel_cost(
-            "flash_attention", q.shape, k.shape, v.shape, dtype=dtype), dtype)
+            "flash_attention", q.shape, k.shape, v.shape, dtype=dtype), dtype,
+            ROUTES[dtype])
         emit(phase="timing_hd112", arch=KIMI, route=ROUTES[dtype],
              dtype=str(dtype), shape=f"q ({B},{S},{H},{hd}) k/v "
              f"({B},{S},{KH},{hd}) causal", max_abs_err=err,
@@ -729,27 +760,56 @@ def phase_head_dim_112(gen):
 
 
 def phase_tensor_core_checks(gen):
-    """The bf16 tensor-core routes at every head dim (flash) and every head
-    dim and chunk tile (SSD), on strided views, and refusing a stride they
-    cannot address.  SSD h_final is held at the fp32 pin: both sides form it
-    in fp32 from the same bf16 inputs."""
+    """Both tensor-core routes, bf16 and fp32 (3xTF32), at every head dim
+    (flash) and every head dim and chunk tile (SSD); each on strided views,
+    the bf16 routes refusing a stride they cannot address and the fp32
+    ones reading unaligned strides 4 bytes at a time.  SSD h_final is held
+    at the fp32 pin: both sides form it in fp32 from the same inputs."""
     bf16 = torch.bfloat16
-    for hd in HEAD_DIMS:
-        for B, Sq, Skv, H, KH in FLASH_TC_CASES:
-            for causal in (True, False):
-                if causal and Sq != Skv:
-                    continue
-                q = randn((B, Sq, H, hd), bf16, gen)
-                k = randn((B, Skv, KH, hd), bf16, gen)
-                v = randn((B, Skv, KH, hd), bf16, gen)
-                before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
-                got = ops.flash_attention(q, k, v, causal=causal)
-                expect_routes("flash_attention", bf16, before)
+    for dtype in (bf16, torch.float32):
+        tag = "tc" if dtype == bf16 else "tf32x3"
+        for hd in HEAD_DIMS:
+            for B, Sq, Skv, H, KH in FLASH_TC_CASES:
+                for causal in (True, False):
+                    if causal and Sq != Skv:
+                        continue
+                    q = randn((B, Sq, H, hd), dtype, gen)
+                    k = randn((B, Skv, KH, hd), dtype, gen)
+                    v = randn((B, Skv, KH, hd), dtype, gen)
+                    before = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+                    got = ops.flash_attention(q, k, v, causal=causal)
+                    expect_routes("flash_attention", dtype, before)
+                    torch.cuda.synchronize()
+                    check_close(f"flash {tag} hd={hd} B={B} Sq={Sq} "
+                                f"Skv={Skv} H={H} KH={KH} causal={causal}",
+                                got, ref.attention_ref(q, k, v,
+                                                       causal=causal),
+                                FLASH_TOL[dtype])
+        for P, tile, S in SSD_TC_CASES:
+            args = ssd_inputs(2, S, 8, P, 128, dtype, gen)
+            before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
+            y, h = ops.ssd_scan(*args, chunk=tile)
+            expect_routes("ssd_scan", dtype, before)
+            case = f"ssd {tag} B=2 S={S} H=8 P={P} N=128 L={tile}"
+            for plain, (want_y, want_h) in (
+                    ("ssd_ref", ref.ssd_ref(*args)),
+                    ("ssd_chunked", ref.ssd_chunked(*args, chunk=tile))):
                 torch.cuda.synchronize()
-                check_close(f"flash tc hd={hd} B={B} Sq={Sq} Skv={Skv} H={H} "
-                            f"KH={KH} causal={causal}", got,
-                            ref.attention_ref(q, k, v, causal=causal),
-                            FLASH_TOL[bf16])
+                check_close(f"{case} y vs {plain}", y, want_y, SSD_TOL[dtype])
+                check_close(f"{case} h_final vs {plain}", h, want_h,
+                            SSD_TOL[torch.float32])
+    f32 = torch.float32
+    buf = randn((1, 64, 4 * 64 + 3), f32, gen)   # base and steps unaligned
+    q = buf[:, :, 1:257].unflatten(2, (4, 64))
+    check_close("flash tf32x3 unaligned strides", ops.flash_attention(q, q, q),
+                ref.attention_ref(q, q, q), FLASH_TOL[f32])
+    x, dt, a_neg, _, _ = ssd_inputs(1, 64, 2, 16, 16, f32, gen)
+    bc = randn((1, 64, 21), f32, gen)
+    args = (x, dt, a_neg, bc[:, :, 1:17], bc[:, :, 2:18])
+    y, h = ops.ssd_scan(*args, chunk=32)
+    want_y, want_h = ref.ssd_ref(*args)
+    check_close("ssd tf32x3 unaligned B/C y", y, want_y, SSD_TOL[f32])
+    check_close("ssd tf32x3 unaligned B/C h_final", h, want_h, SSD_TOL[f32])
     qkv = randn((2, 96, 12, 64), bf16, gen)   # q, k, v sliced from one tensor
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     check_close("flash tc strided q/k/v", ops.flash_attention(q, k, v),
@@ -758,19 +818,6 @@ def phase_tensor_core_checks(gen):
     refuse("flash tc step stride 260", lambda: ops.flash_attention(
         *[buf.as_strided((1, 64, 4, 64), (64 * 260, 260, 64, 1))] * 3))
 
-    for P, tile, S in SSD_TC_CASES:
-        args = ssd_inputs(2, S, 8, P, 128, bf16, gen)
-        before = dict(ops.ROUTE_LAUNCHES["ssd_scan"])
-        y, h = ops.ssd_scan(*args, chunk=tile)
-        expect_routes("ssd_scan", bf16, before)
-        case = f"ssd tc B=2 S={S} H=8 P={P} N=128 L={tile}"
-        for plain, (want_y, want_h) in (
-                ("ssd_ref", ref.ssd_ref(*args)),
-                ("ssd_chunked", ref.ssd_chunked(*args, chunk=tile))):
-            torch.cuda.synchronize()
-            check_close(f"{case} y vs {plain}", y, want_y, SSD_TOL[bf16])
-            check_close(f"{case} h_final vs {plain}", h, want_h,
-                        SSD_TOL[torch.float32])
     xz = randn((2, 96, 8, 32), bf16, gen)     # x, B, C sliced, dt strided
     bc = randn((2, 96, 64), bf16, gen)
     _, dt2, a_neg, _, _ = ssd_inputs(2, 96, 8, 32, 32, bf16, gen)
@@ -798,20 +845,23 @@ def refuse(case, fn):
     raise AssertionError(f"{case}: accepted, should raise ValueError")
 
 
-def timing_row(name, route, dtype, cores, source, replaces, tpu, shape,
+def timing_row(name, route, impl, dtype, cores, source, replaces, tpu, shape,
                err, fn, plain, library, cost, iters=20):
-    """``cost``: the call's ``kernel_cost``, priced at ``dtype``'s
-    peak."""
+    """``cost``: the call's ``kernel_cost``, priced at ``dtype``'s peak on
+    the ``impl`` route (``tf32x3``: three TF32 passes); an fp32 row also
+    gets the bound on the fp32 CUDA cores (``fp32_cores_bound_ms``)."""
     nbytes, work = cost["bytes"], cost["flops"]
-    row = {"name": name, "route": route, "impl": route, "dtype": str(dtype),
+    row = {"name": name, "route": route, "impl": impl, "dtype": str(dtype),
            "cores": cores, "source": source, "replaces": replaces, "tpu": tpu,
            "shape": shape, "max_abs_err": err,
            "ms": cuda_ms(fn, iters=iters),
            "plain_ms": cuda_ms(plain, iters=max(3, iters // 4)),
            "library_ms": None if library is None else cuda_ms(library,
                                                               iters=iters),
-           "bytes": nbytes, "flops": work}
-    row.update(card_bound(cost, dtype))
+           "bytes": nbytes, "flops": work,
+           "fp32_cores_bound_ms": (card_bound(cost, dtype)["bound_ms"]
+                                   if dtype == torch.float32 else None)}
+    row.update(card_bound(cost, dtype, impl))
     row["tflops"] = work / row["ms"] / 1e9
     row["gbps"] = nbytes / row["ms"] / 1e6
     emit(phase="timing", **row)
@@ -821,7 +871,8 @@ def timing_row(name, route, dtype, cores, source, replaces, tpu, shape,
 def phase_timing(gen):
     """Each kernel's, per route, its plain version's and a library call's
     times at its serving shape (the bf16 rows are the serving route; the
-    fp32 rows time the CUDA-core kernels at the same shapes)."""
+    fp32 rows time the 3xTF32 kernels at the same shapes, bound by three
+    TF32 passes and, beside it, by the fp32 CUDA cores)."""
     bf16 = torch.bfloat16
     rows = []
     B, S, H, KH, hd = 4, 1024, 32, 2, 128
@@ -835,7 +886,8 @@ def phase_timing(gen):
         tc = dtype == bf16
         rows.append(timing_row(
             "flash_attention" if tc else "flash_attention_fp32", "cuda",
-            dtype, "tensor (wgmma)" if tc else "CUDA cores",
+            ROUTES[dtype], dtype,
+            "tensor (wgmma)" if tc else "tensor (mma.sync, 3xTF32)",
             "src/repro_torch/kernels/csrc/flash_attention"
             + ("_tc.cu" if tc else ".cu"),
             "src/repro/kernels/flash_attention.py:69",
@@ -855,7 +907,7 @@ def phase_timing(gen):
     err = check_close("rmsnorm serving shape", ops.rmsnorm(x, w),
                       ref.rmsnorm_ref(x, w), NORM_TOL[bf16])
     rows.append(timing_row(
-        "rmsnorm", "triton", bf16, "CUDA cores",
+        "rmsnorm", "triton", "triton", bf16, "CUDA cores",
         "src/repro_torch/kernels/rmsnorm.py",
         "src/repro/kernels/rmsnorm.py:24", "kernels/rmsnorm.py::rmsnorm_fwd",
         f"x ({B * S},{d}) bf16, w ({d},) fp32", err,
@@ -879,8 +931,8 @@ def phase_timing(gen):
         err = max(err, check_close(f"ssd serving shape h_final {dtype}", h,
                                    want_h, SSD_TOL[torch.float32]))
         rows.append(timing_row(
-            "ssd_scan" if tc else "ssd_scan_fp32", "cuda", dtype,
-            "tensor (mma.sync)" if tc else "CUDA cores",
+            "ssd_scan" if tc else "ssd_scan_fp32", "cuda", ROUTES[dtype],
+            dtype, "tensor (mma.sync)" if tc else "tensor (mma.sync, 3xTF32)",
             "src/repro_torch/kernels/csrc/ssd_scan"
             + ("_tc.cu" if tc else ".cu"),
             "src/repro/kernels/ssd_scan.py:60",
@@ -915,7 +967,7 @@ def expect_no_route(arch, snap, route):
 
 
 def phase_parity(arch):
-    """fp32 ``arch`` at full width, 2 layers: card (CUDA-core kernels) vs
+    """fp32 ``arch`` at full width, 2 layers: card (3xTF32 kernels) vs
     host (plain).  Returns the launch counts of the card's run."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     B, S, steps = 2, 200, 8
@@ -998,7 +1050,7 @@ def phase_parity_bf16(arch):
     if not torch.equal(tok_g, tok_c):
         raise AssertionError(f"{arch}: first greedy tokens differ: card "
                              f"{tok_g.tolist()} host {tok_c.tolist()}")
-    expect_no_route(arch, snap, "cuda_core")
+    expect_no_route(arch, snap, "tf32x3")
     return snap
 
 
@@ -1046,7 +1098,7 @@ def phase_serve(arch, smi):
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want}")
     for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
-        routes = {"tensor_core": want[name], "cuda_core": 0}
+        routes = {"tensor_core": want[name], "tf32x3": 0}
         if snap["routes"][name] != routes:
             raise AssertionError(f"{arch}: {name} routes "
                                  f"{snap['routes'][name]}, expected {routes}")
@@ -1168,7 +1220,7 @@ def phase_backward(rows):
 
 def phase_train_parity():
     """fp32 glm4-9b at full width, 2 layers, batch 2, seq 200: the loss and
-    every grad leaf on the card (CUDA-core kernels) against the host, then
+    every grad leaf on the card (3xTF32 kernels) against the host, then
     one AdamW step of the card's train step against the host's update of
     each leaf (to the pin, or where the clipped gradient is near Adam's eps
     to the bound its measured difference allows).  The host holds the fp32
@@ -1356,7 +1408,7 @@ def phase_train(smi, arch=GLM):
         raise AssertionError(f"train {arch}: launches {snap['launches']}, "
                              f"expected {want}")
     for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
-        routes = {"tensor_core": want[name], "cuda_core": 0}
+        routes = {"tensor_core": want[name], "tf32x3": 0}
         if snap["routes"][name] != routes:
             raise AssertionError(f"train {arch}: {name} routes "
                                  f"{snap['routes'][name]}")
@@ -1629,10 +1681,10 @@ def hybrid_parity(policy, B=HYBRID["batch"], S=HYBRID["seq"],
         snap = snapshot()
         want = hybrid_launches(cfg, policy, lambda f, b: f + b, M)
         if (snap["launches"] != want
-                or snap["routes"]["flash_attention"]["cuda_core"]
+                or snap["routes"]["flash_attention"]["tf32x3"]
                 != want["flash_attention"]):
             raise AssertionError(f"hybrid parity {schedule}: launches "
-                                 f"{snap}, expected {want} (CUDA cores)")
+                                 f"{snap}, expected {want} (3xTF32)")
         err = {}
         if root:
             grads = from_pipeline_params(grads)
@@ -1780,7 +1832,7 @@ def hybrid_rank(rank, world_mesh, *, mesh):
         raise AssertionError(f"hybrid train: {out['train']['losses']}, "
                              f"skipped {[r['skipped'] for r in hist]}")
     want = hybrid_launches(cfg, policy, lambda f, b: steps * (f + b))
-    routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
+    routes = {"tensor_core": want["flash_attention"], "tf32x3": 0}
     if snap["launches"] != want or snap["routes"]["flash_attention"] != routes:
         raise AssertionError(f"hybrid train: launches {snap}, expected "
                              f"{want}, flash routes {routes}")
@@ -1883,7 +1935,7 @@ def moe_kernel_checks():
                   check_close(f"{case} h_final vs {plain}", h, want_h,
                               SSD_TOL[torch.float32]))
     timing_row(
-        "ssd_scan", "cuda", bf16, "tensor (mma.sync)",
+        "ssd_scan", "cuda", ROUTES[bf16], bf16, "tensor (mma.sync)",
         "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "src/repro/kernels/ssd_scan.py:60", "kernels/ssd_scan.py::ssd_scan_fwd",
         f"{JAMBA}: x ({B},{S},{H},{P}) B/C ({B},{S},{N}) bf16, chunk {L}",
@@ -1901,7 +1953,7 @@ def moe_kernel_checks():
     x = randn((B * S, 8192), bf16, gen)
     w = 1.0 + 0.1 * randn((8192,), torch.float32, gen)
     timing_row(
-        "rmsnorm", "triton", bf16, "CUDA cores",
+        "rmsnorm", "triton", "triton", bf16, "CUDA cores",
         "src/repro_torch/kernels/rmsnorm.py", "src/repro/kernels/rmsnorm.py:24",
         "kernels/rmsnorm.py::rmsnorm_fwd",
         f"{JAMBA} gated norm: x ({B * S},8192) bf16, w (8192,) fp32",
@@ -1922,7 +1974,7 @@ def moe_kernel_checks():
                       FLASH_TOL[bf16])
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     timing_row(
-        "flash_attention", "cuda", bf16, "tensor (wgmma)",
+        "flash_attention", "cuda", ROUTES[bf16], bf16, "tensor (wgmma)",
         "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "src/repro/kernels/flash_attention.py:69",
         "kernels/flash_attention.py::flash_attention_fwd",
@@ -2134,7 +2186,7 @@ def moe_serve(cfg, params, smi):
         raise AssertionError(f"{JAMBA}: launches {snap['launches']}, "
                              f"expected {want} = {MOE['launches']}")
     for name in ("flash_attention", "ssd_scan"):   # bf16: the tensor cores
-        routes = {"tensor_core": want[name], "cuda_core": 0}
+        routes = {"tensor_core": want[name], "tf32x3": 0}
         if snap["routes"][name] != routes:
             raise AssertionError(f"{JAMBA}: {name} routes "
                                  f"{snap['routes'][name]}, expected {routes}")
@@ -3248,7 +3300,7 @@ def frontend_parity(arch, dtype):
                          cache_c[key], BF16_PARITY_TOL)
         same = torch.equal(logits_g.float().argmax(-1).cpu(),
                            logits_c.argmax(-1))
-        expect_no_route(name, snap, "cuda_core")
+        expect_no_route(name, snap, "tf32x3")
     emit(phase="frontends_parity", arch=arch, dtype=dtype, frontend=cfg.frontend,
          greedy_tokens_equal=bool(same), launches=snap)
     if not same:
@@ -3289,7 +3341,7 @@ def frontend_serve(arch, smi):
             "rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps),
             "ssd_scan": 0}
     if (not finite or snap["launches"] != want
-            or snap["routes"]["flash_attention"]["cuda_core"]
+            or snap["routes"]["flash_attention"]["tf32x3"]
             or tokens.shape != (B, steps)
             or int(tokens.max()) >= cfg.vocab_size):
         raise AssertionError(f"frontends {arch}: {out}, launches expected "
@@ -3618,7 +3670,7 @@ def check_sharded_launches(name, cfg, snap, steps):
     flash and SSD launch on the tensor-core route (bf16)."""
     want = sharded_launches(cfg, steps)
     bad = snap["launches"] != want or any(
-        snap["routes"][k]["cuda_core"] for k in ("flash_attention",
+        snap["routes"][k]["tf32x3"] for k in ("flash_attention",
                                                  "ssd_scan"))
     if bad:
         raise AssertionError(f"{name}: launches {snap}, expected {want} on "
@@ -3801,7 +3853,7 @@ def serve_mesh_parity(rank, arch, cfg, run, mesh_shape=SERVE_MESH):
         if snap["launches"] != want_l:
             raise AssertionError(f"{name}: launches {snap}, expected "
                                  f"{want_l}")
-        expect_no_route(name, snap, "tensor_core" if fp32 else "cuda_core")
+        expect_no_route(name, snap, "tensor_core" if fp32 else "tf32x3")
         if rank == 0:
             emit(phase="serve_mesh_parity", arch=arch, dtype=cfg.dtype,
                  layers=cfg.num_layers, layout=layout, **out[layout])
@@ -4161,7 +4213,7 @@ def zero3_rank(rank, world_mesh, *, mesh_shape, parity, run, parity_tol):
                              f"{out['train']['losses']}, skipped "
                              f"{out['train']['skipped']}")
     want = zero3_launches(cfg, steps, mesh_shape[1])
-    routes = {k: {"tensor_core": want[k], "cuda_core": 0}
+    routes = {k: {"tensor_core": want[k], "tf32x3": 0}
               for k in ("flash_attention", "ssd_scan")}
     if snap["launches"] != want or any(snap["routes"][k] != r
                                        for k, r in routes.items()):
@@ -4328,7 +4380,7 @@ def flash_rank_rows(gen, archs, tp, phase):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bound = card_bound(kernel_cost("flash_attention", q.shape,
                                            k.shape, v.shape, dtype=dtype),
-                               dtype)
+                               dtype, ROUTES[dtype])
             row = dict(
                 arch=arch, ranks=ranks, shape=shape, route=ROUTES[dtype],
                 max_abs_err=err,
@@ -4665,10 +4717,10 @@ def main():
     by_path.update(phase_uneven_widths(smi))
     counted = {   # row -> (kernel, route) counted for it; None: all routes
         "flash_attention": ("flash_attention", "tensor_core"),
-        "flash_attention_fp32": ("flash_attention", "cuda_core"),
+        "flash_attention_fp32": ("flash_attention", "tf32x3"),
         "rmsnorm": ("rmsnorm", None),
         "ssd_scan": ("ssd_scan", "tensor_core"),
-        "ssd_scan_fp32": ("ssd_scan", "cuda_core"),
+        "ssd_scan_fp32": ("ssd_scan", "tf32x3"),
     }
 
     def launches_of(row, snap):
@@ -4686,8 +4738,8 @@ def main():
             raise AssertionError(f"{row['name']}: no launch on any path")
     keys = ("name", "route", "impl", "dtype", "cores", "source", "replaces",
             "tpu", "path", "launches", "launches_by_path", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "gbps",
-            "backward", "backward_ms", "backward_max_abs_err")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
+            "gbps", "backward", "backward_ms", "backward_max_abs_err")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

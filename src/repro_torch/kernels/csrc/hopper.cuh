@@ -1,8 +1,9 @@
 // Building blocks of the tensor-core kernels (flash_attention_tc.cu and
-// ssd_scan_tc.cu), as inline PTX for sm_90a: shared-memory addresses,
-// mbarriers, TMA tensor loads, cp.async, ldmatrix, mma.sync and wgmma with
-// its shared-memory matrix descriptors.  Header only; each kernel source
-// includes it.
+// ssd_scan_tc.cu in bf16, flash_attention.cu and ssd_scan.cu in fp32 by
+// 3xTF32), as inline PTX for sm_90a: shared-memory addresses, mbarriers, TMA
+// tensor loads, cp.async, ldmatrix, mma.sync (bf16 and TF32), the TF32
+// hi + lo split, and wgmma with its shared-memory matrix descriptors.
+// Header only; each kernel source includes it.
 
 #pragma once
 
@@ -140,6 +141,44 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- 3xTF32: fp32 products on the TF32 tensor cores -------------------------
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: the
+// value cvt.rna.tf32.f32 gives for a finite x, as two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: hi the rounded x, lo the rounded rest, which is
+// exact in fp32.  A product of two such pairs drops only lo * lo and the
+// roundings of lo, about 2^-22 of each term.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b for a 16x8 TF32 A (row), an 8x8 TF32 B (col), fp32 d.  Fragments
+// (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d as m16n8k16's.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b to about fp32 accuracy from split operands (3xTF32): the two
+// small cross terms first, then hi * hi, each summed in fp32.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+    mma_tf32_1688(d, al, bh);
+    mma_tf32_1688(d, ah, bl);
+    mma_tf32_1688(d, ah, bh);
 }
 
 // ---- wgmma -------------------------------------------------------------------

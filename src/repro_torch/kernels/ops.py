@@ -8,7 +8,13 @@ there is no switch that sends a CUDA tensor to the plain version.
 ``LAUNCHES`` counts every kernel launch, so a run can show that its path
 went through the kernels, and ``ROUTE_LAUNCHES`` counts the launches of
 flash attention and the SSD scan by route: ``tensor_core`` for bf16,
-``cuda_core`` for fp32.
+``tf32x3`` for fp32 (the TF32 tensor cores by split products).
+
+An empty head block (no query or SSM head: a rank of a model axis larger
+than the head count) has no work: on ``meta`` and on the card the wrapper
+checks it and returns the empty outputs of the kernel's shapes, launches
+nothing and counts nothing, and the trace records no kernel call.  On the
+host the plain versions return the same empty shapes.
 
 A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the shape
 route: the same checks as the card's wrapper, which raise where it
@@ -45,7 +51,7 @@ from .cost import kernel_cost
 from .rmsnorm import rmsnorm_fwd
 
 LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
-ROUTE_LAUNCHES = {name: {"tensor_core": 0, "cuda_core": 0}
+ROUTE_LAUNCHES = {name: {"tensor_core": 0, "tf32x3": 0}
                   for name in ("flash_attention", "ssd_scan")}
 
 
@@ -94,9 +100,11 @@ def _recompute_grads(ctx, plain, outputs_grad, **kwargs):
 def _flash_fwd(q, k, v, causal):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    if q.device.type == "meta":
-        _flash.check_inputs(q, k, v, device="meta")
-        out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if q.device.type == "meta" or _flash.is_empty(q):
+        _flash.check_inputs(q, k, v, device=q.device.type)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        if _flash.is_empty(q):  # no head, no work: nothing to launch
+            return out
     else:
         out = _flash.flash_attention_fwd(q, k, v, causal=causal)
         LAUNCHES["flash_attention"] += 1
@@ -174,12 +182,14 @@ def rmsnorm(x, w, eps=1e-6):
 def _ssd_fwd(x, dt, a_neg, Bm, Cm, chunk):
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, a_neg, Bm, Cm, chunk=chunk)
-    if x.device.type == "meta":
-        _ssd.check_inputs(x, dt, a_neg, Bm, Cm, chunk, device="meta")
+    if x.device.type == "meta" or _ssd.is_empty(x):
+        _ssd.check_inputs(x, dt, a_neg, Bm, Cm, chunk, device=x.device.type)
         B, S, H, P = x.shape
-        out = (torch.empty((B, S, H, P), dtype=x.dtype, device="meta"),
+        out = (torch.empty((B, S, H, P), dtype=x.dtype, device=x.device),
                torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32,
-                           device="meta"))
+                           device=x.device))
+        if _ssd.is_empty(x):    # no head, no work: nothing to launch
+            return out
     else:
         out = _ssd.ssd_scan_fwd(x, dt, a_neg, Bm, Cm, chunk=chunk)
         LAUNCHES["ssd_scan"] += 1

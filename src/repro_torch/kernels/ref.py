@@ -20,10 +20,13 @@ def attention_ref(q, k, v, *, causal=True):
 
     fp32 internally, output in q's dtype.  The causal mask is the flash
     kernel's top-left ``rows >= cols`` (``flash_attention.py:50-53``); it
-    equals the reference's bottom-right ``tril`` when Sq == Skv.
+    equals the reference's bottom-right ``tril`` when Sq == Skv.  An empty
+    head block (H = KH = 0) gives the empty (B, Sq, 0, hd), as the kernel.
     """
     B, Sq, H, hd = q.shape
     Skv, KH = k.shape[1], k.shape[2]
+    if H == 0:
+        return q.clone()
     group = H // KH
     scale = 1.0 / math.sqrt(hd)
     qf = q.float().reshape(B, Sq, KH, group, hd)
@@ -42,10 +45,13 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool = True):
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H % KH == 0.
     Returns (B, Sq, H, hd).  fp32 accumulation; p is cast to q's dtype
-    before the PV product, as in the reference.
+    before the PV product, as in the reference.  An empty head block
+    (H = KH = 0) gives the empty (B, Sq, 0, hd).
     """
     B, Sq, H, hd = q.shape
     Skv, KH = k.shape[1], k.shape[2]
+    if H == 0:
+        return q.clone()
     group = H // KH
     scale = 1.0 / math.sqrt(hd)
     if group > 1:

@@ -16,10 +16,15 @@ Dispatch is by the dtype of x, B and C, a rule and not a fallback
   the fp32 one (1e-4).  A bf16 input it does
   not take (a stride or base ``cp.async`` cannot move in 16-byte pieces)
   raises ``ValueError``.
-- **fp32** launches ``csrc/ssd_scan.cu`` on the CUDA cores, whose exact
-  fp32 arithmetic holds the fp32 pin.
+- **fp32** launches ``csrc/ssd_scan.cu`` on the TF32 tensor cores by
+  split products (``tf32x3``: each operand split into TF32 hi + lo, three
+  ``mma.sync`` passes summed in fp32), which holds the fp32 pin on y and
+  the final state.
 
-A failed build or launch raises ``RuntimeError``.
+A failed build or launch raises ``RuntimeError``.  An empty head block
+(H = 0: a rank of a model axis larger than the SSM head count) is a
+shape the wrappers take; it has no work, so ``ops`` launches nothing for
+it.
 
 Bound: at the serving shape (mamba2-370m, B=8, S=2048, H=32, P=64, N=128,
 chunk 64, bf16) the scan reads x, dt, B and C once and writes y and the
@@ -39,19 +44,18 @@ import torch
 
 from . import build
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)        # P
 MAX_STATE = 128                 # N, a multiple of 16
 TILES = (16, 32, 64, 128)       # chunk tiles; every (tile, P, N) fits in
                                 # shared memory, the largest in 199 KB
 # The kernel each dtype of x launches: the bf16 tensor-core kernel or the
-# fp32 CUDA-core one.
-ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
-
-_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+# fp32 one on the TF32 tensor cores by split products.
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
+# the C interface of both kernels
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
          + [ctypes.c_void_p, ctypes.c_void_p])
-_ARGS_TC = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_void_p, ctypes.c_void_p])
+_SYMBOLS = {"tensor_core": ("ssd_scan_tc", "ssd_scan_tc_fwd"),
+            "tf32x3": ("ssd_scan", "ssd_scan_fwd")}
 
 
 def tile_for(chunk: int) -> int:
@@ -70,12 +74,12 @@ def check_inputs(x, dt, a_neg, Bm, Cm, chunk, *, device="cuda"):
                              f"needs a CUDA tensor")
         if t.device != x.device:
             raise ValueError("ssd_scan: the inputs lie on different devices")
-    if (x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype
+    if (x.dtype not in ROUTES or Bm.dtype != x.dtype or Cm.dtype != x.dtype
             or dt.dtype != torch.float32 or a_neg.dtype != torch.float32):
         raise ValueError(f"ssd_scan: dtypes x {x.dtype}, Bm {Bm.dtype}, Cm "
                          f"{Cm.dtype}, dt {dt.dtype}, a_neg {a_neg.dtype}; the "
                          f"kernel takes x, Bm and Cm in one of "
-                         f"{sorted(map(str, DTYPES))}, dt and a_neg in float32")
+                         f"{sorted(map(str, ROUTES))}, dt and a_neg in float32")
     if x.dim() != 4 or Bm.dim() != 3:
         raise ValueError(f"ssd_scan: x {tuple(x.shape)} must be (B, S, H, P) "
                          f"and Bm {tuple(Bm.shape)} (B, S, N)")
@@ -94,12 +98,13 @@ def check_inputs(x, dt, a_neg, Bm, Cm, chunk, *, device="cuda"):
         raise ValueError(f"ssd_scan: head dim {P} not in {HEAD_DIMS}, or "
                          f"state size {N} not a multiple of 16 up to "
                          f"{MAX_STATE}")
-    if S == 0 or B * H == 0:
-        raise ValueError(f"ssd_scan: S = {S} and B*H = {B * H} must be "
-                         f"non-zero")
+    if S == 0 or B == 0:
+        raise ValueError(f"ssd_scan: S = {S} and B = {B} must be non-zero")
     L = min(chunk, S)
     if L < 1 or not tile_for(L):
         raise ValueError(f"ssd_scan: chunk {chunk} (at most {TILES[-1]})")
+    if is_empty(x):
+        return      # no head: nothing is loaded, whatever the strides
     if x.dtype == torch.bfloat16:
         # cp.async moves x, B and C rows in 16-byte pieces.
         for name, t, dims in (("x", x, 3), ("Bm", Bm, 2), ("Cm", Cm, 2)):
@@ -108,6 +113,11 @@ def check_inputs(x, dt, a_neg, Bm, Cm, chunk, *, device="cuda"):
                     f"ssd_scan: bf16 {name} needs a 16-byte aligned base "
                     f"and leading strides that are multiples of 8 elements, "
                     f"got strides {tuple(t.stride())}")
+
+
+def is_empty(x) -> bool:
+    """Whether x holds no head: an empty head block, which has no work."""
+    return x.shape[2] == 0
 
 
 def ssd_scan_fwd(x, dt, a_neg, Bm, Cm, *, chunk=64):
@@ -127,19 +137,11 @@ def ssd_scan_fwd(x, dt, a_neg, Bm, Cm, *, chunk=64):
     strides = (ctypes.c_int64 * 10)(*x.stride()[:3], *dt.stride(),
                                      *Bm.stride()[:2], *Cm.stride()[:2])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if ROUTES[x.dtype] == "tensor_core":
-        fn = build.bind("ssd_scan_tc", "ssd_scan_tc_fwd", _ARGS_TC)
-        err = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), Bm.data_ptr(),
-                 Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), B, S, H, P,
-                 N, L, tile_for(L), strides, stream)
-        if err != 0:
-            raise RuntimeError(f"ssd_scan_tc_fwd launch failed: CUDA error "
-                               f"{err}")
-        return y, h_final
-    fn = build.bind("ssd_scan", "ssd_scan_fwd", _ARGS)
+    lib, symbol = _SYMBOLS[ROUTES[x.dtype]]
+    fn = build.bind(lib, symbol, _ARGS)
     err = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), Bm.data_ptr(),
-             Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), DTYPES[x.dtype],
-             B, S, H, P, N, L, tile_for(L), strides, stream)
+             Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), B, S, H, P, N, L,
+             tile_for(L), strides, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     return y, h_final

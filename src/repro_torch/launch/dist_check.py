@@ -8,7 +8,9 @@ reference's pin, and each collective's time.
 Each check is (a) <F x, y> = <x, F* y> with the adjoint applied as an
 operator and (b) ``torch.autograd`` through the hand-written backwards
 (``linop.check_adjoint_pair``), on one global input drawn alike on every
-rank and scattered by the check's specs.  Shapes (``FULL``, the default):
+rank and scattered by the check's specs; the collectives of unequal
+blocks are checked (a) over a balanced split that leaves the last rank
+an empty block (``empty_block_cases``; two ranks or more).  Shapes (``FULL``, the default):
 glm4-9b's activation block (batch 4, seq 1024, d_model 4096) fp32, sharded
 on seq for the gather, scatter, halo, shift and ring checks (seq-major,
 seq first, for the ops that stack on dim 0); its FFN weight (4096, 13696)
@@ -90,6 +92,28 @@ def prim_cases(shapes: dict) -> list:
         ("shard_slice_replicated",
          lambda x: prim.shard_slice_replicated(x, AX, 1),
          lambda y: prim.all_gather_replicated(y, AX, 1), rep, seq, act),
+    ]
+
+
+def empty_block_cases(shapes: dict, k: int, me: int) -> list:
+    """(name, forward, this rank's input shape, output stacked over the
+    axis) for the collectives of unequal blocks, over the balanced split
+    of k - 1 along seq (and, for the all-to-all, of k - 1 along the
+    feature dim): the last rank's block is empty, as a rank of a model
+    axis larger than a head count holds no head."""
+    B, _, D = shapes["act"]
+    sizes = partition.balanced_split(k - 1, k)
+    return [
+        ("all_gather unequal, an empty block",
+         lambda x: prim.all_gather(x, AX, 1, sizes), (B, sizes[me], D), True),
+        ("reduce_scatter unequal, an empty block",
+         lambda x: prim.reduce_scatter(x, AX, 1, sizes), (B, k - 1, D), True),
+        ("all_to_all_v, an empty block",
+         lambda x: prim.all_to_all_v(x, AX, 1, 2, sizes, sizes),
+         (B, k - 1, sizes[me]), True),
+        ("all_gather_replicated_v, an empty block",
+         lambda x: prim.all_gather_replicated_v(x, AX, 1, sizes),
+         (B, sizes[me], D), False),
     ]
 
 
@@ -223,6 +247,15 @@ def suite(rank: int, mesh, *, shapes=FULL, time_iters: int = 20) -> dict:
             rel[name], eps[name] = r.rel_err, EPS
             timed(name, fwd, linop.scatter(
                 torch.randn(shape, generator=gen, device=device), in_spec))
+        if k > 1:   # one rank has no unequal block to leave empty
+            group = linop.spec_groups(P(AX), mesh)
+            for name, fwd, shape, stacked in empty_block_cases(
+                    shapes, k, prim.axis_index(AX)):
+                gen.manual_seed(4)
+                x = torch.randn(shape, generator=gen, device=device)
+                r = adjoint_test(fwd, x, eps=EPS, name=name, x_groups=group,
+                                 y_groups=group if stacked else [])
+                rel[name], eps[name] = r.rel_err, EPS
     n = shapes["mem"]
     for name, f, adj in memory_cases(n, device):
         gen.manual_seed(3)

@@ -263,8 +263,12 @@ def local_kv_heads(cfg, tp: int, index: int) -> list[int]:
     K/V head j // (n / kv)): where the rank holds whole groups, their K/V
     heads; where its heads lie in one group, that group's head; otherwise
     (a rank holding parts of two groups, as phi3-medium's 40 heads over
-    10 K/V heads at TP 16 give) one K/V head per query head."""
+    10 K/V heads at TP 16 give) one K/V head per query head; none for a
+    rank that holds no query head (a model axis larger than the head
+    count)."""
     first, n = head_block(cfg.num_heads, tp, index)
+    if n == 0:
+        return []
     group = cfg.num_heads // cfg.num_kv_heads
     lo, hi = first // group, (first + n - 1) // group
     if lo == hi:
@@ -276,9 +280,12 @@ def local_kv_heads(cfg, tp: int, index: int) -> list[int]:
 
 def _kv_of_local_heads(t, cfg, policy):
     """Of every K/V head, (B, S, KH, hd), the ones this rank's query heads
-    attend (``local_kv_heads``): a slice where they are consecutive."""
+    attend (``local_kv_heads``): a slice where they are consecutive, an
+    empty one where the rank holds no query head."""
     idx = local_kv_heads(cfg, policy.model_size,
                          prim.axis_index(policy.model_axis))
+    if not idx:
+        return t[:, :, :0]
     if idx == list(range(idx[0], idx[-1] + 1)):
         return t[:, :, idx[0]:idx[-1] + 1]
     return t[:, :, torch.tensor(idx, device=t.device)]

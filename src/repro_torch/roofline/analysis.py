@@ -32,11 +32,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 # (HBM bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor
-# cores), dense, from NVIDIA's H100 data sheet for each form factor.
-PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
-         "H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100 NVL": (3.9e12, 835e12, 60e12)}
-HBM_BW, PEAK_FLOPS, _ = PEAKS["H100 SXM"]
+# cores, TF32 tensor-core FLOP/s), dense, from NVIDIA's H100 data sheet for
+# each form factor (TF32 is half the bf16 rate).
+PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12, 494.5e12),
+         "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12, 417.5e12)}
+HBM_BW, PEAK_FLOPS, _, _ = PEAKS["H100 SXM"]
 HBM_BYTES = 80e9        # H100 SXM: 80 GB of HBM3 (data sheet)
 NVLINK_BW = 450e9       # NVLink 4: 900 GB/s a GPU, 450 each direction
 NIC_BW = 50e9           # one 400 Gb/s NIC a GPU (DGX H100 data sheet)
@@ -46,12 +47,18 @@ SOURCE = ("dry run: counts from shapes over the H100 SXM data sheet; "
           "not measured")
 
 # dtypes the tensor cores take at the bf16 rate; every other float runs
-# at the fp32 rate (TF32 is off in the port, as in chip_smoke.py)
+# at the fp32 rate (TF32 is off for the port's aten matmuls, as in
+# chip_smoke.py), except a kernel route's work on the TF32 tensor cores
+# (ROUTE_PASSES)
 _TENSOR_CORE = {"bfloat16", "float16"}
+# the fp32 kernels' route on the TF32 tensor cores: each operation of the
+# work is three TF32 products (hi*hi, hi*lo, lo*hi; ``kernels/csrc``)
+ROUTE_PASSES = {"tf32x3": 3}
 
 
 def peaks(name: str):
-    """(table name, (bytes/s, bf16 FLOP/s, fp32 FLOP/s)) of the card whose
+    """(table name, (bytes/s, bf16 FLOP/s, fp32 FLOP/s, TF32 FLOP/s)) of
+    the card whose
     ``torch.cuda.get_device_name`` is ``name``: PCIe and NVL by name,
     otherwise SXM."""
     for key in ("PCIe", "NVL"):
@@ -64,9 +71,12 @@ def _dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def peak_flops(dtype, table=PEAKS["H100 SXM"]) -> float:
-    """The peak operations/s of ``dtype``: the tensor-core bf16 rate for
-    16-bit floats, the fp32 rate otherwise."""
+def peak_flops(dtype, table=PEAKS["H100 SXM"], route: str = "") -> float:
+    """The peak operations/s of ``dtype``'s work: the tensor-core bf16
+    rate for 16-bit floats, the fp32 rate otherwise; a kernel of a route
+    in ``ROUTE_PASSES`` at the TF32 rate over its passes."""
+    if route in ROUTE_PASSES:
+        return table[3] / ROUTE_PASSES[route]
     return table[1] if _dtype_name(dtype) in _TENSOR_CORE else table[2]
 
 
@@ -77,13 +87,15 @@ def link_bw(ranks) -> float:
     return NVLINK_BW if len(nodes) <= 1 else NIC_BW
 
 
-def bound(cost: dict, dtype, table=PEAKS["H100 SXM"]) -> dict:
+def bound(cost: dict, dtype, table=PEAKS["H100 SXM"],
+          route: str = "") -> dict:
     """The least time of ``cost`` (``kernels.cost.kernel_cost``'s dict) on
     a card of ``table``'s peaks: the larger of its bytes over the memory
-    rate and its operations over ``dtype``'s peak, in ms, and which of the
-    two binds."""
+    rate and its operations over ``dtype``'s peak (``route``'s, for a
+    kernel of a route in ``ROUTE_PASSES``), in ms, and which of the two
+    binds."""
     bytes_ms = cost["bytes"] / table[0] * 1e3
-    flops_ms = cost["flops"] / peak_flops(dtype, table) * 1e3
+    flops_ms = cost["flops"] / peak_flops(dtype, table, route) * 1e3
     return {"bytes_ms": bytes_ms, "flops_ms": flops_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
@@ -195,8 +207,8 @@ def ssd_flops_fwd(cfg, B: int, S: int, L: int = 64) -> float:
 def analyze(trace, cfg, shape_name: str, chips: int) -> Roofline:
     """The roofline of one traced step (``hlo_profile.Trace`` or its
     records): operations and bytes of every aten op and kernel call, each
-    op priced at its dtype's peak, and each collective's output bytes over
-    the link its group spans."""
+    op priced at its dtype's peak (a kernel call at its route's), and each
+    collective's output bytes over the link its group spans."""
     records = getattr(trace, "records", trace)
     flops = byts = coll = 0
     compute_s = collective_s = 0.0
@@ -208,7 +220,7 @@ def analyze(trace, cfg, shape_name: str, chips: int) -> Roofline:
         flops += rec.flops
         byts += rec.in_bytes + rec.out_bytes
         if rec.flops:
-            compute_s += rec.flops / peak_flops(rec.dtype)
+            compute_s += rec.flops / peak_flops(rec.dtype, route=rec.route)
     return Roofline(flops=float(flops), bytes_accessed=float(byts),
                     coll_bytes=float(coll),
                     model_flops=model_flops(cfg, shape_name), chips=chips,

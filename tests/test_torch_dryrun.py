@@ -10,7 +10,12 @@ reference's result plus ``program``, ``fits`` and ``source``; a cell the
 port refuses is written with its message; phi4-mini's ``train_4k``, whose
 24 query heads 16 does not divide, traces with a roofline; the kernels'
 meta route refuses what the card refuses (bf16 flash at head dim 8) and
-launches nothing; the guard reads a meta flag as a clean step.
+launches nothing; the guard reads a meta flag as a clean step.  A model
+axis larger than the head count (64 over glm4-9b's 32 query heads and
+mamba2-370m's 32 SSM heads) leaves ranks 32-63 empty head blocks: rank 63
+traces serving and training with no flash or SSD call and the same
+collectives as rank 0, and the meta wrappers return the kernels' empty
+shapes.
 """
 
 import dataclasses
@@ -148,6 +153,61 @@ def test_meta_route_refuses_what_the_card_refuses():
     q = torch.empty(1, 64, 4, 64, dtype=torch.bfloat16, device="meta")
     assert ops.flash_attention(q, q, q).device.type == "meta"
     assert ops.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def empty_block_cells():
+    """``mesh_cell`` at (1, 64), one layer, batch 1, seq 256, for glm4-9b
+    and mamba2-370m served and trained, on rank 63 (no head) and rank 0."""
+    return {(arch, kind, rank): dryrun.mesh_cell(arch, 1, 1, 256, (1, 64),
+                                                 rank=rank, kind=kind)
+            for arch in ("glm4-9b", "mamba2-370m")
+            for kind in ("serve", "train") for rank in (63, 0)}
+
+
+@pytest.mark.parametrize("arch, kernel", [("glm4-9b", "flash_attention"),
+                                          ("mamba2-370m", "ssd_scan")])
+@pytest.mark.parametrize("kind", ["serve", "train"])
+def test_a_rank_with_no_head_traces_every_collective(empty_block_cells,
+                                                     arch, kernel, kind):
+    """Rank 63 of a 64-way model axis holds no query or SSM head: it calls
+    no flash or SSD kernel (its sublayer contributes zero) and takes part
+    in every collective rank 0 takes, with zero-size blocks."""
+    empty = empty_block_cells[(arch, kind, 63)]
+    full = empty_block_cells[(arch, kind, 0)]
+    assert kernel not in empty["kernel_calls"]
+    assert full["kernel_calls"][kernel] >= 1
+    assert empty["kernel_calls"]["rmsnorm"] == full["kernel_calls"]["rmsnorm"]
+    assert empty["collectives"]["counts"] == full["collectives"]["counts"]
+    assert empty["collectives"]["c10d_ops"] == full["collectives"]["c10d_ops"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_wrappers_return_empty_head_blocks(dtype):
+    """An empty head block on ``meta``: flash (H = KH = 0) and the SSD scan
+    (H = 0) return the kernels' shapes, record no kernel call and launch
+    nothing; any other shape is still refused."""
+    from repro_torch.roofline.hlo_profile import Trace
+    q = torch.empty(2, 64, 0, 128, dtype=dtype, device="meta")
+    x = torch.empty(2, 64, 0, 64, dtype=dtype, device="meta")
+    dt = torch.empty(2, 64, 0, device="meta")
+    a_neg = torch.empty(0, device="meta")
+    bm = torch.empty(2, 64, 128, dtype=dtype, device="meta")
+    before = dict(ops.LAUNCHES)
+    with Trace() as tr:
+        o = ops.flash_attention(q, q, q)
+        y, h = ops.ssd_scan(x, dt, a_neg, bm, bm)
+    assert (o.shape, y.shape, h.shape) == ((2, 64, 0, 128), (2, 64, 0, 64),
+                                           (2, 0, 64, 128))
+    assert (o.dtype, y.dtype, h.dtype) == (dtype, dtype, torch.float32)
+    assert o.device.type == y.device.type == h.device.type == "meta"
+    assert not [r for r in tr.records if r.kind == "kernel"]
+    assert ops.LAUNCHES == before
+    k = torch.empty(2, 64, 2, 128, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="query heads do not group"):
+        ops.flash_attention(k, q, q)          # 2 query heads over 0 K/V
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_scan(x[..., :48], dt, a_neg, bm, bm)
 
 
 def test_a_meta_flag_passes_the_guard_as_a_clean_step():

@@ -9,7 +9,7 @@ Tolerances are the reference's pins (tests/test_kernels.py): attention 2e-5
 in fp32, RMSNorm 1e-5 in fp32, both 2e-2 in bf16; the SSD scan 1e-4 in
 fp32 and 5e-2 in bf16, and 1e-4 on its final state for bf16 inputs too,
 since both sides form it in fp32.  bf16 flash attention and SSD inputs take
-the tensor-core kernels, fp32 ones the CUDA-core kernels
+the bf16 tensor-core kernels, fp32 ones the 3xTF32 kernels
 (``ops.ROUTE_LAUNCHES``).  Gradients through each kernel's autograd
 Function (the kernel's forward, a backward recomputed through the plain
 version) must equal the plain function's own autograd within the same pins,
@@ -97,6 +97,57 @@ def test_flash_kernel_reads_strided_inputs(gen):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,causal", [
+    (1, 128, 128, 2, 2, True),
+    (2, 200, 200, 8, 2, True),    # ragged last q tile and KV tile
+    (2, 200, 200, 8, 2, False),
+    (1, 72, 200, 4, 1, False),    # Sq != Skv
+    (1, 300, 70, 4, 4, True),     # Sq > Skv: rows past Skv see every key
+])
+def test_flash_tf32x3_kernel_fp32(gen, hd, B, Sq, Skv, H, KH, causal):
+    """The fp32 route (3xTF32 split products) at every head dim, at the
+    fp32 pin."""
+    q = _randn((B, Sq, H, hd), torch.float32, gen)
+    k = _randn((B, Skv, KH, hd), torch.float32, gen)
+    v = _randn((B, Skv, KH, hd), torch.float32, gen)
+    before = ops.ROUTE_LAUNCHES["flash_attention"]["tf32x3"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.ROUTE_LAUNCHES["flash_attention"]["tf32x3"] == before + 1
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=causal),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_tf32x3_kernel_reads_unaligned_strides(gen):
+    """fp32 q, k, v whose base and step stride are not whole 16 bytes: the
+    kernel copies them 4 bytes at a time."""
+    buf = _randn((1, 64, 4 * 64 + 3), torch.float32, gen)
+    q = buf[:, :, 1:257].unflatten(2, (4, 64))
+    torch.testing.assert_close(ops.flash_attention(q, q, q),
+                               ref.attention_ref(q, q, q),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_empty_head_blocks_launch_nothing(gen, dtype):
+    """A rank holding no head: flash with H = KH = 0 and the SSD scan with
+    H = 0 return the kernel's (empty) shapes and count no launch."""
+    q = _randn((2, 64, 0, 128), dtype, gen)
+    x = _randn((2, 64, 0, 64), dtype, gen)
+    bm = _randn((2, 64, 128), dtype, gen)
+    before = ({k: dict(v) for k, v in ops.ROUTE_LAUNCHES.items()},
+              dict(ops.LAUNCHES))
+    o = ops.flash_attention(q, q, q)
+    y, h = ops.ssd_scan(x, _randn((2, 64, 0), torch.float32, gen),
+                        _randn((0,), torch.float32, gen), bm, bm)
+    torch.cuda.synchronize()
+    assert (o.shape, y.shape, h.shape) == ((2, 64, 0, 128), (2, 64, 0, 64),
+                                           (2, 0, 64, 128))
+    assert (o.dtype, y.dtype, h.dtype) == (dtype, dtype, torch.float32)
+    assert ({k: dict(v) for k, v in ops.ROUTE_LAUNCHES.items()},
+            dict(ops.LAUNCHES)) == before
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(gen):
     q = _randn((1, 64, 4, 48), torch.float32, gen)
     with pytest.raises(ValueError, match="head dim"):
@@ -146,15 +197,15 @@ def test_flash_tensor_core_kernel_refuses_misaligned(gen):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
-                                         (torch.float32, "cuda_core")])
+                                         (torch.float32, "tf32x3")])
 def test_dtype_picks_the_route(gen, dtype, route):
-    """bf16 launches the tensor-core kernels, fp32 the CUDA-core ones."""
+    """bf16 launches the bf16 tensor-core kernels, fp32 the 3xTF32 ones."""
     q = _randn((1, 64, 4, 64), dtype, gen)
     args = _ssd_inputs(1, 64, 2, 16, 16, dtype, gen)
     ops.reset_launches()
     ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     ops.ssd_scan(*args, chunk=32)
-    other = {"tensor_core": "cuda_core", "cuda_core": "tensor_core"}[route]
+    other = {"tensor_core": "tf32x3", "tf32x3": "tensor_core"}[route]
     for name in ("flash_attention", "ssd_scan"):
         assert ops.ROUTE_LAUNCHES[name] == {route: 1, other: 0}
         assert ops.LAUNCHES[name] == 1
@@ -266,6 +317,35 @@ def test_ssd_tensor_core_kernel_bf16(gen, P, chunk, S):
         torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("chunk", TILES)
+@pytest.mark.parametrize("S", [200, 40])   # ragged; shorter than some chunks
+def test_ssd_tf32x3_kernel_fp32(gen, P, chunk, S):
+    """The fp32 route (3xTF32 split products) at every head dim and chunk
+    tile: y and the final state at the fp32 pin against both plain
+    forms."""
+    args = _ssd_inputs(2, S, 8, P, 128, torch.float32, gen)
+    before = ops.ROUTE_LAUNCHES["ssd_scan"]["tf32x3"]
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    assert ops.ROUTE_LAUNCHES["ssd_scan"]["tf32x3"] == before + 1
+    for want_y, want_h in (ref.ssd_ref(*args),
+                           ref.ssd_chunked(*args, chunk=chunk)):
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_tf32x3_kernel_reads_unaligned_strides(gen):
+    """fp32 B and C whose bases are not 16-byte aligned: the kernel copies
+    them 4 bytes at a time."""
+    x, dt, a_neg, _, _ = _ssd_inputs(1, 64, 2, 16, 16, torch.float32, gen)
+    buf = _randn((1, 64, 21), torch.float32, gen)
+    args = (x, dt, a_neg, buf[:, :, 1:17], buf[:, :, 2:18])
+    y, h = ops.ssd_scan(*args, chunk=32)
+    want_y, want_h = ref.ssd_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
+
+
 def test_ssd_tensor_core_kernel_reads_strided_inputs(gen):
     """bf16 x, B and C sliced out of fused projections, dt a strided view."""
     B, S, H, P, N = 2, 96, 4, 32, 32
@@ -344,7 +424,7 @@ def test_kernel_backward_matches_plain_autograd(gen, kernel, dtype):
 
 
 def test_train_two_steps_card_vs_host(gen):
-    """Two AdamW steps of reduced glm4-9b in fp32 on the card (CUDA-core
+    """Two AdamW steps of reduced glm4-9b in fp32 on the card (3xTF32
     flash, Triton norm) and on the host from the same params: losses within
     1e-4, params within the fp32 parity pin 1e-3, and one flash launch a
     layer and 2 norms a layer plus the final one a step."""
@@ -435,7 +515,7 @@ def test_flash_kernel_at_kimi_head_dim_112(gen, dtype):
     head out at 128 columns, TMA zero-filling the last 16)."""
     q = _randn((1, 1024, 64, 112), dtype, gen)
     k, v = (_randn((1, 1024, 8, 112), dtype, gen) for _ in range(2))
-    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    route = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     before = ops.ROUTE_LAUNCHES["flash_attention"][route]
     got = ops.flash_attention(q, k, v, causal=True)
     assert ops.ROUTE_LAUNCHES["flash_attention"][route] == before + 1

@@ -270,16 +270,24 @@ def test_importing_ops_does_not_import_triton():
 
 @pytest.mark.parametrize("module", ["flash_attention", "ssd_scan"])
 def test_route_is_a_rule_on_the_dtype(module):
-    """bf16 takes the tensor-core kernel and fp32 the CUDA-core one; no
+    """bf16 takes the bf16 tensor-core kernel and fp32 the 3xTF32 one; no
     other dtype has a route, and host calls count on neither."""
     wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
     assert wrapper.ROUTES == {torch.bfloat16: "tensor_core",
-                              torch.float32: "cuda_core"}
-    assert set(wrapper.ROUTES) == set(wrapper.DTYPES)
+                              torch.float32: "tf32x3"}
+    half = torch.empty((1, 64, 2, 16), dtype=torch.float16, device="meta")
+    with pytest.raises(ValueError, match="dtypes"):
+        if module == "flash_attention":
+            wrapper.check_inputs(half, half, half, device="meta")
+        else:
+            bm = torch.empty((1, 64, 16), dtype=torch.float16, device="meta")
+            dt = torch.empty((1, 64, 2), device="meta")
+            wrapper.check_inputs(half, dt, dt[0, 0], bm, bm, 64,
+                                 device="meta")
     ops.reset_launches()
     xs, bm = torch.randn((1, 40, 2, 16)), torch.randn((1, 40, 16))
     ops.ssd_scan(xs, torch.rand((1, 40, 2)), -torch.rand((2,)), bm, bm)
     ops.flash_attention(xs, xs, xs)
     assert ops.ROUTE_LAUNCHES == {
-        name: {"tensor_core": 0, "cuda_core": 0}
+        name: {"tensor_core": 0, "tf32x3": 0}
         for name in ("flash_attention", "ssd_scan")}

@@ -38,20 +38,30 @@ SWEEP_CASES = C.sweep_cases()
 # ``all_to_all_v`` (the port's alone: GSPMD pads instead): id -> (name,
 # mesh, axis, n), each split dim the balanced split of n (the gather's)
 # or of n and n + 1 (the all-to-all's rows and columns) over the axis.
-UNEQUAL = {f"{name}-{mesh}-{ax}": (name, mesh, ax, n)
+# n = 5 over 8 ranks leaves ranks 5-7 empty blocks (zero rows; zero
+# columns on ranks 6 and 7), as a model axis larger than a head count
+# does.
+UNEQUAL = {f"{name}-{mesh}-{ax}" + ("-empty" if n == 5 and mesh == "1d"
+                                    else ""): (name, mesh, ax, n)
            for name in ("all_gather_replicated_v", "all_to_all_v")
            for mesh, ax, n in (("1d", "model", 13), ("2d", "model", 10),
-                               ("2d", "data", 5), ("3d", "pipe", 3))}
+                               ("2d", "data", 5), ("3d", "pipe", 3),
+                               ("1d", "model", 5))}
 # The partitioned pair over unequal blocks, ``all_gather`` and
 # ``reduce_scatter`` with ``sizes`` (the paper's B and R over the balanced
 # split):
 # id -> (name, mesh, axis, n), n over 3 ranks on the (2, 3) mesh (6 of the
-# 8 ranks) and over 4 and 2 on the (2, 4) one.
+# 8 ranks) and over 4 and 2 on the (2, 4) one; n = 2 over 3 and 3 over 4
+# leave the last rank an empty block.  Each case has an id of its own.
 MESH_2X3 = ((2, 3), ("data", "model"))
-PAIR_V = {f"{name}-{mesh}-{ax}": (name, mesh, ax, n)
+PAIR_V = {f"{name}-{tag}": (name, mesh, ax, n)
           for name in ("all_gather_v", "reduce_scatter_v")
-          for mesh, ax, n in (("2x3", "model", 7), ("2x3", "model", 8),
-                              ("2d", "model", 10), ("2d", "data", 5))}
+          for tag, mesh, ax, n in (
+              ("2x3-model-7", "2x3", "model", 7),
+              ("2x3-model", "2x3", "model", 8),
+              ("2d-model", "2d", "model", 10), ("2d-data", "2d", "data", 5),
+              ("2x3-model-empty", "2x3", "model", 2),
+              ("2d-model-empty", "2d", "model", 3))}
 NORM_D = 64      # rmsnorm_sharded's width: 22, 21, 21 over 3 ranks
 
 
@@ -274,7 +284,7 @@ def _case(results, cid):
 
 
 def _close(got, want, tol, what):
-    scale = max(float(np.abs(want).max()), 1e-30)
+    scale = max(float(np.abs(want).max(initial=0.0)), 1e-30)
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale,
                                err_msg=what)
 
@@ -501,10 +511,12 @@ def test_hybrid_mesh_axes_and_elision(results):
 
 def test_dist_check_suite_on_host(results):
     """The card's Eq. 13 suite (chip_smoke.py's dist phase) at its small
-    shapes on the 8 gloo ranks: every check passes on every rank."""
+    shapes on the 8 gloo ranks: every check passes on every rank, the
+    collectives of unequal blocks with an empty one included."""
     for res in (r["dist_check"] for r in results[0]):
         assert res["world"] == 8 and res["backend"] == "gloo"
-        assert len(res["rel_err"]) == 47 and not res["failed"], res["failed"]
+        assert len(res["rel_err"]) == 51 and not res["failed"], res["failed"]
+        assert sum("an empty block" in c for c in res["rel_err"]) == 4
         assert {t["name"] for t in res["timing"]} >= {
             "AllReduce", "AllGather", "ReduceScatter", "AllToAll",
             "SendRecv", "KVRingShift", "HaloExchange", "HaloAccumulate"}

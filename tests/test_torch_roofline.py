@@ -86,6 +86,42 @@ def test_kernel_cost_gives_the_kernel_tables_bounds():
         fp32["flops"] / 67e12 * 1e3
 
 
+def test_tf32x3_kernels_are_priced_at_three_tf32_passes():
+    """The TF32 column is half the bf16 one on each form factor; a kernel
+    call on the ``tf32x3`` route (fp32 work as three TF32 products) is
+    priced at 3 x its operations over it, in ``bound`` and in ``analyze``,
+    while an aten fp32 matmul stays at the fp32 rate (TF32 is off for
+    them) and bf16 kernel calls at the bf16 rate, to the last digit."""
+    assert {k: v[3] for k, v in analysis.PEAKS.items()} == {
+        "H100 SXM": 494.5e12, "H100 PCIe": 378e12, "H100 NVL": 417.5e12}
+    assert all(v[3] == v[1] / 2 for v in analysis.PEAKS.values())
+    shapes = ((4, 1024, 32, 128), (4, 1024, 2, 128), (4, 1024, 2, 128))
+    fp32 = kernel_cost("flash_attention", *shapes, dtype=torch.float32)
+    tf32 = analysis.bound(fp32, torch.float32, route="tf32x3")
+    assert tf32["flops_ms"] == fp32["flops"] / (494.5e12 / 3) * 1e3
+    assert round(tf32["bound_ms"], 4) == 0.2087       # PERF.md §6
+    assert round(analysis.bound(fp32, torch.float32)["bound_ms"], 4) == 0.5133
+    ssd = kernel_cost("ssd_scan", (8, 2048, 32, 64), (8, 2048, 32), (32,),
+                      (8, 2048, 128), (8, 2048, 128), dtype=torch.float32)
+    assert round(analysis.bound(ssd, torch.float32,
+                                route="tf32x3")["bound_ms"], 4) == 0.1319
+    bf16 = kernel_cost("flash_attention", *shapes, dtype=BF16)
+    assert analysis.bound(bf16, BF16, route="tensor_core") == \
+        analysis.bound(bf16, BF16)
+    assert analysis.bound(bf16, BF16)["flops_ms"] == \
+        bf16["flops"] / 989e12 * 1e3
+
+    def rec(route, dtype, flops):
+        return OpRecord("kernel", "flash_attention", 0, ((1,),), ((1,),),
+                        dtype, flops=flops, route=route)
+
+    recs = [rec("tf32x3", "float32", 3e9), rec("tensor_core", "bfloat16", 5e9),
+            OpRecord("aten", "aten.mm", 0, ((1,),), ((1,),), "float32",
+                     flops=7e9)]
+    roof = analysis.analyze(recs, get_config("glm4-9b"), "train_4k", 1)
+    assert roof.t_compute == 3 * 3e9 / 494.5e12 + 5e9 / 989e12 + 7e9 / 67e12
+
+
 def test_collectives_are_priced_by_the_link_their_group_spans():
     assert analysis.link_bw(range(8)) == analysis.NVLINK_BW
     assert analysis.link_bw(range(16)) == analysis.NIC_BW

@@ -39,10 +39,16 @@ PROMPT_SEED = 12
 # shared expert d_ff 100 (96 would divide).  "phi3_kv3" at model = 3
 # splits its 3 K/V heads one a rank but not head_dim 16 (6, 5, 5), so
 # decode moves q, k and v to unequal head_dim blocks.  "pixtral" serves
-# from the stub frontend's embeds (``EMBEDS``).
+# from the stub frontend's embeds (``EMBEDS``).  At model = 8, larger
+# than the head counts, ranks hold empty head blocks: reduced glm4-9b's 4
+# query heads leave ranks 4-7 none (its 2 K/V heads whole), and
+# "mamba2_p32" (head dim 32: 4 SSM heads, d_inner 128) leaves ranks 4-7
+# no SSM head and no d_inner channel; each still takes part in every
+# collective, with zero-size blocks.
 MODELS = {
     "jamba": ("jamba-v0.1-52b", {}),          # (ssm, mlp), (ssm, moe), (attn, mlp)
     "mamba2": ("mamba2-370m", {}),            # ssm only, tied embeddings
+    "mamba2_p32": ("mamba2-370m", {"ssm_head_dim": 32}),
     "kimi": ("kimi-k2-1t-a32b", {}),          # MoE every layer, a shared expert
     "llama4": ("llama4-maverick-400b-a17b", {}),   # top-1, a shared expert
     "glm4": ("glm4-9b", {}),                  # 2 K/V heads
@@ -75,6 +81,9 @@ CASES = {
     "kimi_e6_dp2_tp3_kvdim": ("kimi_e6", (2, 3), "kvdim"),
     "pixtral_embeds_dp2_tp4_kvdim": ("pixtral", (2, 4), "kvdim"),
     "phi3_kv3_dp2_tp3_kvdim": ("phi3_kv3", (2, 3), "kvdim"),
+    "glm4_dp1_tp8_kvdim": ("glm4", (1, 8), "kvdim"),
+    "glm4_dp1_tp8_kvseq": ("glm4", (1, 8), "kvseq"),
+    "mamba2_p32_dp1_tp8": ("mamba2_p32", (1, 8), "kvdim"),
 }
 # the cases that prefill from ``embeds(d_model)`` in place of the prompt
 # (the greedy decode steps take tokens, as the engine's)

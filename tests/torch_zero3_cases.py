@@ -57,16 +57,22 @@ CASES = {
     "glm_accum2_dp2_tp4": ("glm4-accum2", (2, 4)),
     "mamba_dp2_tp3": ("mamba2-370m", (2, 3)),
     "kimi_e6_dp2_tp3": ("kimi-e6", (2, 3)),
+    # model = 8, larger than reduced glm4-9b's 4 query heads: ranks 4-7
+    # hold empty head blocks and contribute zero to attention
+    "glm_dp1_tp8": ("glm4-9b", (1, 8)),
 }
 # The reference runs on (2, 4) only, in three JAX children side by side (a
 # jitted program a mesh is most of this file's time): its GSPMD step
 # computes global values, the same on every mesh to fp32 rounding (on
 # these cases its losses at (2, 4), (4, 2) and (8, 1) agree to 7e-8 and
-# its grad norms to 1e-7 relative), so each glm4-9b mesh of the port is
-# held to the reference's (2, 4) run, whose gradients are also written
-# (GRADS_CASES, as are glm4-h6's).
+# its grad norms to 1e-7 relative; at (1, 8), where ranks 4-7 hold no
+# query head, it runs too, its first loss and grad norm within 1e-7 of
+# (2, 4)'s), so each glm4-9b mesh of the port is held to the reference's
+# (2, 4) run, whose gradients are also written (GRADS_CASES, as are
+# glm4-h6's).
 REFERENCE = {"glm_dp2_tp4": "glm_dp2_tp4", "glm_dp4_tp2": "glm_dp2_tp4",
-             "glm_dp8_tp1": "glm_dp2_tp4", "kimi_dp2_tp4": "kimi_dp2_tp4",
+             "glm_dp8_tp1": "glm_dp2_tp4", "glm_dp1_tp8": "glm_dp2_tp4",
+             "kimi_dp2_tp4": "kimi_dp2_tp4",
              "mamba_dp2_tp4": "mamba_dp2_tp4",
              "glm_h6_dp2_tp4": "glm_h6_dp2_tp4",
              "glm_accum2_dp2_tp4": "glm_accum2_dp2_tp4",

@@ -77,21 +77,23 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _recompute_grads(ctx, plain, outputs_grad, **kwargs):
+def _recompute_grads(ctx, name, plain, outputs_grad, **kwargs):
     """Grads of ``plain(*saved inputs, **kwargs)`` for the inputs that need
     them, recomputed from the saved inputs; None for the others.  The only
     read of ``ctx.saved_tensors``: under ``torch.utils.checkpoint`` they
-    unpack once."""
+    unpack once.  The recompute and its grads are the span
+    ``kernels.<name>.bwd``."""
     inputs = [t.detach().requires_grad_(need)
               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
     wanted = [t for t in inputs if t.requires_grad]
-    with torch.enable_grad():
-        out = plain(*inputs, **kwargs)
-    outs = out if isinstance(out, tuple) else (out,)
-    pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
-    grads = iter(torch.autograd.grad([o for o, _ in pairs],
-                                     wanted, [g for _, g in pairs],
-                                     allow_unused=True))
+    with tracing.span(f"kernels.{name}.bwd"):
+        with torch.enable_grad():
+            out = plain(*inputs, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                         wanted, [g for _, g in pairs],
+                                         allow_unused=True))
     return [next(grads) if t.requires_grad else None for t in inputs]
 
 
@@ -127,7 +129,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_recompute_grads(ctx, ref.blockwise_attention, (g,),
+        return (*_recompute_grads(ctx, "flash_attention",
+                                  ref.blockwise_attention, (g,),
                                   chunk=ctx.chunk, causal=ctx.causal), None)
 
 
@@ -167,7 +170,8 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (*_recompute_grads(
-            ctx, lambda x, w: ref.rmsnorm_ref(x, w, ctx.eps), (g,)), None)
+            ctx, "rmsnorm", lambda x, w: ref.rmsnorm_ref(x, w, ctx.eps),
+            (g,)), None)
 
 
 def rmsnorm(x, w, eps=1e-6):
@@ -215,8 +219,8 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        return (*_recompute_grads(ctx, ref.ssd_chunked, (gy, gh),
-                                  chunk=ctx.chunk), None)
+        return (*_recompute_grads(ctx, "ssd_scan", ref.ssd_chunked,
+                                  (gy, gh), chunk=ctx.chunk), None)
 
 
 def ssd_scan(x, dt, a_neg, Bm, Cm, chunk=64):

@@ -29,6 +29,7 @@ from repro_torch.core import layers as L
 from repro_torch.core import primitives as prim
 from repro_torch.core.compile import dist_jit
 from repro_torch.sharding import Partitioned
+from repro_torch.tracing import span
 
 from .attention import (attention_block, attention_block_sp,
                         attention_block_tp, attn_init)
@@ -152,25 +153,30 @@ def superblock_apply_sp(p, specs, x, cfg, policy, *, positions, fsdp_axes):
         mixer, ffn = layer_kinds(cfg, i)
         pp, ss = subtree(p, f"pos{i}"), subtree(specs, f"pos{i}")
         h = rmsnorm(x, pp["norm_mixer"])
-        if mixer == "attn":
-            x = x + attention_block_sp(subtree(pp, "attn"),
-                                       subtree(ss, "attn"), h, cfg, policy,
-                                       positions=positions,
-                                       fsdp_axes=fsdp_axes)
-        else:
-            x = x + ssm_block_sp(subtree(pp, "ssm"), subtree(ss, "ssm"), h,
-                                 cfg, policy, fsdp_axes=fsdp_axes, seq=seq)
+        with span(f"model.{mixer}"):
+            if mixer == "attn":
+                x = x + attention_block_sp(subtree(pp, "attn"),
+                                           subtree(ss, "attn"), h, cfg,
+                                           policy, positions=positions,
+                                           fsdp_axes=fsdp_axes)
+            else:
+                x = x + ssm_block_sp(subtree(pp, "ssm"), subtree(ss, "ssm"),
+                                     h, cfg, policy, fsdp_axes=fsdp_axes,
+                                     seq=seq)
         if ffn == "none":
             continue
         h = rmsnorm(x, pp["norm_ffn"])
-        if ffn == "mlp":
-            x = x + mlp_apply_sp(h, subtree(pp, "mlp"), subtree(ss, "mlp"),
-                                 cfg.mlp_type, policy, fsdp_axes, seq)
-        else:
-            y, aux_i = moe_apply_sp(h, subtree(pp, "moe"), subtree(ss, "moe"),
-                                    cfg, policy, fsdp_axes, seq)
-            x = x + y
-            aux = aux + aux_i
+        with span("model.ffn"):
+            if ffn == "mlp":
+                x = x + mlp_apply_sp(h, subtree(pp, "mlp"),
+                                     subtree(ss, "mlp"), cfg.mlp_type, policy,
+                                     fsdp_axes, seq)
+            else:
+                y, aux_i = moe_apply_sp(h, subtree(pp, "moe"),
+                                        subtree(ss, "moe"), cfg, policy,
+                                        fsdp_axes, seq)
+                x = x + y
+                aux = aux + aux_i
     return x, aux
 
 
@@ -293,22 +299,26 @@ def sublayer_apply(p, x, cfg, layer: int, *, positions, mode, cache=None,
         return _tp_sublayer_apply(p, x, cfg, policy, positions=positions,
                                   ffn=ffn), None, aux
     h = rmsnorm(x, p["norm_mixer"])
-    if mixer == "attn":
-        out, kv = attention_block(subtree(p, "attn"), h, cfg,
-                                  positions=positions, mode=mode, cache=cache,
-                                  index=index, cache_len=cache_len,
-                                  ctx_axis=ctx_axis, policy=policy)
-    else:
+    if mixer != "attn":
         _refuse_ssm_under_ctx(ctx_axis)
-        out, kv = ssm_block(subtree(p, "ssm"), h, cfg, mode=mode, cache=cache,
-                            index=index)
+    with span(f"model.{mixer}"):
+        if mixer == "attn":
+            out, kv = attention_block(subtree(p, "attn"), h, cfg,
+                                      positions=positions, mode=mode,
+                                      cache=cache, index=index,
+                                      cache_len=cache_len, ctx_axis=ctx_axis,
+                                      policy=policy)
+        else:
+            out, kv = ssm_block(subtree(p, "ssm"), h, cfg, mode=mode,
+                                cache=cache, index=index)
     x = x + out
     if ffn != "none":
         h = rmsnorm(x, p["norm_ffn"])
-        if ffn == "mlp":
-            out = mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type)
-        else:
-            out, aux = moe_apply(h, subtree(p, "moe"), cfg, policy)
+        with span("model.ffn"):
+            if ffn == "mlp":
+                out = mlp_apply(h, subtree(p, "mlp"), cfg.mlp_type)
+            else:
+                out, aux = moe_apply(h, subtree(p, "moe"), cfg, policy)
         x = x + out
     return x, kv, aux
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import primitives as prim
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map
 
 f32 = np.float32
@@ -135,22 +136,24 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         lr = self.lr(count)
         c1, c2 = _bias_corrections(b1, b2, count)
-        for name, p in params.items():
-            g32 = grads[name].float()
-            if scale is not None:
-                g32 = g32 * scale
-            m, v = state["m"][name], state["v"][name]
-            # the reference's expressions, each in-place op on a fresh
-            # temporary or on an fp32 moment being replaced (same roundings)
-            m32 = m.float().mul_(b1).add_(g32 * (1 - b1))
-            v32 = v.float().mul_(b2).add_(g32 * g32 * (1 - b2))
-            del g32
-            step = (m32 / c1).div_(torch.sqrt(v32 / c2).add_(self.eps))
-            if p.ndim >= 2:  # decoupled weight decay on matrices only
-                step += self.weight_decay * p.float()
-            p.copy_(p.float().sub_(step.mul_(lr)))
-            m.copy_(m32)
-            v.copy_(v32)
+        with span("optim.update"):
+            for name, p in params.items():
+                g32 = grads[name].float()
+                if scale is not None:
+                    g32 = g32 * scale
+                m, v = state["m"][name], state["v"][name]
+                # the reference's expressions, each in-place op on a fresh
+                # temporary or on an fp32 moment being replaced (same
+                # roundings)
+                m32 = m.float().mul_(b1).add_(g32 * (1 - b1))
+                v32 = v.float().mul_(b2).add_(g32 * g32 * (1 - b2))
+                del g32
+                step = (m32 / c1).div_(torch.sqrt(v32 / c2).add_(self.eps))
+                if p.ndim >= 2:  # decoupled weight decay on matrices only
+                    step += self.weight_decay * p.float()
+                p.copy_(p.float().sub_(step.mul_(lr)))
+                m.copy_(m32)
+                v.copy_(v32)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
 
@@ -192,51 +195,54 @@ class Adafactor:
         count = state["count"] + 1
         lr = self.lr(count)
         d = self.decay
-        for name, p in params.items():
-            split = (splits or {}).get(name) or ((),) * p.ndim
+        with span("optim.update"):
+            for name, p in params.items():
+                split = (splits or {}).get(name) or ((),) * p.ndim
 
-            def mean(x, dim, axes):
-                """``x.mean(dim)`` over the global dim (``dim`` None: over
-                every element), the dim split over ``axes``."""
-                if not axes:
-                    return x.mean() if dim is None else x.mean(dim=dim)
-                s = x.sum() if dim is None else x.sum(dim=dim)
-                with prim.use_mesh(mesh):
-                    prim.psum_([s], axes)
-                n = x.numel() if dim is None else x.shape[dim]
-                return s / (n * math.prod(prim.axis_size(a) for a in axes))
+                def mean(x, dim, axes):
+                    """``x.mean(dim)`` over the global dim (``dim`` None:
+                    over every element), the dim split over ``axes``."""
+                    if not axes:
+                        return x.mean() if dim is None else x.mean(dim=dim)
+                    s = x.sum() if dim is None else x.sum(dim=dim)
+                    with prim.use_mesh(mesh):
+                        prim.psum_([s], axes)
+                    n = x.numel() if dim is None else x.shape[dim]
+                    return s / (n * math.prod(prim.axis_size(a)
+                                              for a in axes))
 
-            g32 = grads[name].float()
-            if scale is not None:
-                g32 = g32 * scale
-            m, v = state["m"][name], state["v"][name]
-            g2 = g32 * g32 + self.eps
-            if p.ndim >= 2:
-                vr = v["vr"] * d + mean(g2, -1, split[-1]) * (1 - d)
-                vc = v["vc"] * d + mean(g2, -2, split[-2]) * (1 - d)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(mean(vr, -1, split[-2])[..., None,
-                                                               None],
-                                       min=self.eps))
-                prec = torch.rsqrt(torch.clamp(denom, min=self.eps))
-                new_v = {"vr": vr, "vc": vc}
-            else:
-                vv = v["v"] * d + g2 * (1 - d)
-                prec = torch.rsqrt(torch.clamp(vv, min=self.eps))
-                new_v = {"v": vv}
-            u = g32 * prec
-            # clip update rms to 1 (adafactor stability)
-            every = tuple(dict.fromkeys(a for axes in split for a in axes))
-            rms = torch.sqrt(mean(u * u, None, every) + 1e-12)
-            u = u / torch.clamp(rms, min=1.0)
-            m32 = m.float() * self.b1 + u * (1 - self.b1)
-            step = m32
-            if p.ndim >= 2 and self.weight_decay:
-                step = step + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * step)
-            m.copy_(m32)
-            for key, t in new_v.items():
-                v[key].copy_(t)
+                g32 = grads[name].float()
+                if scale is not None:
+                    g32 = g32 * scale
+                m, v = state["m"][name], state["v"][name]
+                g2 = g32 * g32 + self.eps
+                if p.ndim >= 2:
+                    vr = v["vr"] * d + mean(g2, -1, split[-1]) * (1 - d)
+                    vc = v["vc"] * d + mean(g2, -2, split[-2]) * (1 - d)
+                    denom = (vr[..., None] * vc[..., None, :]
+                             / torch.clamp(mean(vr, -1, split[-2])[..., None,
+                                                                   None],
+                                           min=self.eps))
+                    prec = torch.rsqrt(torch.clamp(denom, min=self.eps))
+                    new_v = {"vr": vr, "vc": vc}
+                else:
+                    vv = v["v"] * d + g2 * (1 - d)
+                    prec = torch.rsqrt(torch.clamp(vv, min=self.eps))
+                    new_v = {"v": vv}
+                u = g32 * prec
+                # clip update rms to 1 (adafactor stability)
+                every = tuple(dict.fromkeys(a for axes in split
+                                            for a in axes))
+                rms = torch.sqrt(mean(u * u, None, every) + 1e-12)
+                u = u / torch.clamp(rms, min=1.0)
+                m32 = m.float() * self.b1 + u * (1 - self.b1)
+                step = m32
+                if p.ndim >= 2 and self.weight_decay:
+                    step = step + self.weight_decay * p.float()
+                p.copy_(p.float() - lr * step)
+                m.copy_(m32)
+                for key, t in new_v.items():
+                    v[key].copy_(t)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
 

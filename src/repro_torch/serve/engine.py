@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import primitives as prim
 from repro_torch.models import forward, init_cache
 from repro_torch.models.blocks import check_serve_policy
+from repro_torch.tracing import span
 
 
 class ServeEngine:
@@ -57,7 +58,12 @@ class ServeEngine:
     @torch.inference_mode()
     def prefill(self, tokens):
         """tokens: (B, S_prompt) -> (last_logits, cache); with a policy,
-        the last logits of this rank's rows and its part of the cache."""
+        the last logits of this rank's rows and its part of the cache.
+        The span ``serve.prefill``."""
+        with span("serve.prefill"):
+            return self._prefill(tokens)
+
+    def _prefill(self, tokens):
         cache = init_cache(self.cfg, self.batch_size, self.max_seq,
                            device=self.device, policy=self.policy)
         if self.policy is not None:
@@ -79,11 +85,13 @@ class ServeEngine:
     @torch.inference_mode()
     def decode_step(self, cache, tokens, cache_len: int):
         """tokens: (B, 1); cache_len: the number of positions already cached.
-        Updates ``cache`` in place and returns (last_logits, cache)."""
+        Updates ``cache`` in place and returns (last_logits, cache).  The
+        span ``serve.decode_step``."""
         batch = {"tokens": tokens, "cache_len": cache_len}
-        logits, cache, _ = forward(self.params, batch, self.cfg,
-                                   mode="decode", cache=cache,
-                                   policy=self.policy)
+        with span("serve.decode_step"):
+            logits, cache, _ = forward(self.params, batch, self.cfg,
+                                       mode="decode", cache=cache,
+                                       policy=self.policy)
         return logits[:, -1], cache
 
     @torch.inference_mode()
